@@ -1,0 +1,319 @@
+"""Flagship decoder-only transformer LM (PyTorch port).
+
+Port of ``ray_tpu/models/transformer.py``: the same configuration presets and
+the same parameter tree (dict keys, stacked ``[L, ...]`` shapes), so weights
+move between the two packages as numpy arrays (``models/convert.py``). The
+model is plain functions on tensors over that tree:
+
+- a Python loop over the stacked L axis in place of ``lax.scan``;
+- the GPT-J parallel block, rotary embeddings, RMSNorm, optional GQA;
+- attention pluggable: ``dense`` (``ops/attention.py``) or ``flash`` (the
+  hand-written CUDA kernel of ``ops/flash_attention.py``).
+
+This slice ports the forward value only: ``remat`` has no effect without
+gradients, and the ring/ulysses attentions and the MoE FFN are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch.device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.attention import causal_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: Optional[int] = None  # None => MHA
+    d_head: int = 64
+    d_ff: int = 2048
+    rotary_dim: int = 32
+    max_seq_len: int = 2048
+    dtype: Any = torch.bfloat16  # activation/compute dtype
+    param_dtype: Any = torch.float32
+    attn_impl: str = "dense"  # dense | flash (ring | ulysses not ported yet)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    remat: bool = False
+    remat_policy: str = "dots"
+    tie_embeddings: bool = False
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    # ---- canonical sizes (the same as the JAX package's) ----
+    @staticmethod
+    def gptj_6b() -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=50432, d_model=4096, n_layers=28, n_heads=16,
+            d_head=256, d_ff=16384, rotary_dim=64, max_seq_len=2048,
+        )
+
+    @staticmethod
+    def small_1b() -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=32000, d_model=2048, n_layers=16, n_heads=16,
+            d_head=128, d_ff=8192, rotary_dim=64, max_seq_len=2048,
+        )
+
+    @staticmethod
+    def bench_400m() -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=32000, d_model=1024, n_layers=24, n_heads=8,
+            d_head=128, d_ff=4096, rotary_dim=64, max_seq_len=2048,
+            attn_impl="flash", remat=True, remat_policy="dots",
+        )
+
+    @staticmethod
+    def serve_7b() -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+            d_head=128, d_ff=16384, rotary_dim=128, max_seq_len=2048,
+            attn_impl="dense", remat=False,
+        )
+
+    @staticmethod
+    def tiny(**kw) -> "TransformerConfig":
+        base = dict(
+            vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+            d_head=16, d_ff=128, rotary_dim=8, max_seq_len=128,
+        )
+        base.update(kw)
+        return TransformerConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree):
+    """Applies ``fn`` to every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def layer_params(params: Dict, i: int) -> Dict:
+    """ONE layer's params (no leading L dim) from the stacked tree."""
+    return tree_map(lambda x: x[i], params["layers"])
+
+
+def init_params(config: TransformerConfig, seed: int,
+                device: DeviceLike = None) -> Dict:
+    """Random parameters with the JAX package's tree and shapes (the values
+    differ: parity goes through weight transfer)."""
+    c = config
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pd = c.param_dtype
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x * std).to(pd)
+
+    def dense_init(shape, fan_in):
+        return normal(shape, fan_in ** -0.5)
+
+    L = c.n_layers
+    layers = {
+        "ln1": {"scale": torch.ones((L, c.d_model), dtype=pd, device=dev)},
+        "attn": {
+            "wq": dense_init((L, c.d_model, c.n_heads, c.d_head), c.d_model),
+            "wk": dense_init((L, c.d_model, c.kv_heads, c.d_head), c.d_model),
+            "wv": dense_init((L, c.d_model, c.kv_heads, c.d_head), c.d_model),
+            "wo": dense_init((L, c.n_heads, c.d_head, c.d_model),
+                             c.n_heads * c.d_head),
+        },
+    }
+    if c.moe_experts:
+        E = c.moe_experts
+        layers["moe"] = {
+            "router": dense_init((L, c.d_model, E), c.d_model),
+            "wi": dense_init((L, E, c.d_model, c.d_ff), c.d_model),
+            "wo": dense_init((L, E, c.d_ff, c.d_model), c.d_ff),
+        }
+    else:
+        layers["mlp"] = {
+            "wi": dense_init((L, c.d_model, c.d_ff), c.d_model),
+            "wo": dense_init((L, c.d_ff, c.d_model), c.d_ff),
+        }
+    params = {
+        "embed": normal((c.vocab_size, c.d_model), 0.02),
+        "layers": layers,
+        "final_ln": {"scale": torch.ones((c.d_model,), dtype=pd, device=dev)},
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = dense_init((c.d_model, c.vocab_size), c.d_model)
+    return params
+
+
+def param_logical_axes(config: TransformerConfig) -> Dict:
+    """Same-structure tree of logical axis-name tuples (None = no sharding)."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "ln1": {"scale": ("layers", "embed")},
+            "attn": {
+                "wq": ("layers", "embed", "heads", "head_dim"),
+                "wk": ("layers", "embed", "kv_heads", "head_dim"),
+                "wv": ("layers", "embed", "kv_heads", "head_dim"),
+                "wo": ("layers", "heads", "head_dim", "embed"),
+            },
+        },
+        "final_ln": {"scale": ("embed",)},
+    }
+    if config.moe_experts:
+        axes["layers"]["moe"] = {
+            "router": ("layers", "embed", "experts"),
+            "wi": ("layers", "experts", "embed", "mlp"),
+            "wo": ("layers", "experts", "mlp", "embed"),
+        }
+    else:
+        axes["layers"]["mlp"] = {
+            "wi": ("layers", "embed", "mlp"),
+            "wo": ("layers", "mlp", "embed"),
+        }
+    if not config.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _rms_norm(x, scale, eps=1e-6):
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def _rotary(q, k, rotary_dim, positions):
+    """Apply rotary embeddings to the first `rotary_dim` dims of q/k.
+
+    q/k: [B, S, H, D]; positions: [S] global token positions, or [B, S]
+    per-sequence positions (continuous-batching decode, where slots sit at
+    different depths).
+    """
+    d2 = rotary_dim // 2
+    inv_freq = 1.0 / (
+        10000.0 ** (torch.arange(0, d2, device=q.device) / d2)
+    )
+    freqs = positions[..., None].float() * inv_freq  # [S,d2] or [B,S,d2]
+    if positions.dim() == 1:
+        cos = torch.cos(freqs)[None, :, None, :]
+        sin = torch.sin(freqs)[None, :, None, :]
+    else:
+        cos = torch.cos(freqs)[:, :, None, :]
+        sin = torch.sin(freqs)[:, :, None, :]
+
+    def rot(x):
+        xr, xp = x[..., :rotary_dim], x[..., rotary_dim:]
+        x1, x2 = xr[..., :d2], xr[..., d2:]
+        xr = torch.cat(
+            [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1
+        ).to(x.dtype)
+        return torch.cat([xr, xp], dim=-1)
+
+    return rot(q), rot(k)
+
+
+def select_attn_fn(config: TransformerConfig):
+    c = config
+    if c.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={c.attn_impl!r} is not ported yet"
+        )
+    if c.attn_impl == "flash":
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention
+    if c.attn_impl == "dense":
+        return causal_attention
+    raise ValueError(f"unknown attn_impl {c.attn_impl!r}")
+
+
+def apply_layer(
+    x: torch.Tensor,  # [B, S, D]
+    lp: Dict,  # ONE layer's params (no leading L dim)
+    config: TransformerConfig,
+    positions: torch.Tensor,
+    attn_fn,
+):
+    """GPT-J parallel block: y = x + attn(ln(x)) + ffn(ln(x)).
+
+    Shared by the forward below and the KV-cached generation path
+    (models/generation.py). ``attn_fn(q, k, v)`` returns the attention
+    output [B, S, H, D]. Returns (y, aux_loss)."""
+    c = config
+    if c.moe_experts:
+        raise NotImplementedError("the MoE FFN is not ported yet")
+    h = _rms_norm(x, lp["ln1"]["scale"])
+    q = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"].to(c.dtype))
+    k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wk"].to(c.dtype))
+    v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wv"].to(c.dtype))
+    q, k = _rotary(q, k, c.rotary_dim, positions)
+    attn_out = attn_fn(q, k, v)
+    a = torch.einsum("bshk,hkd->bsd", attn_out,
+                     lp["attn"]["wo"].to(c.dtype))
+    m = torch.einsum("bsd,df->bsf", h, lp["mlp"]["wi"].to(c.dtype))
+    m = F.gelu(m, approximate="tanh")  # jax.nn.gelu's default
+    m = torch.einsum("bsf,fd->bsd", m, lp["mlp"]["wo"].to(c.dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + a + m, aux
+
+
+def lm_head(params: Dict, x: torch.Tensor, config: TransformerConfig):
+    """Final norm and vocabulary projection: x [..., D] -> logits [..., V]."""
+    x = _rms_norm(x, params["final_ln"]["scale"])
+    head = (params["embed"].T if config.tie_embeddings
+            else params["lm_head"])
+    return x @ head.to(config.dtype)
+
+
+def forward(
+    params: Dict,
+    tokens: torch.Tensor,  # [B, S] integer
+    config: TransformerConfig,
+    return_aux: bool = False,
+):
+    """Returns logits [B, S, vocab] (and the MoE aux loss if return_aux)."""
+    c = config
+    x = params["embed"][tokens].to(c.dtype)  # [B, S, D]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    attn_fn = select_attn_fn(c)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(c.n_layers):
+        x, a = apply_layer(x, layer_params(params, i), c, positions, attn_fn)
+        aux = aux + a
+    logits = lm_head(params, x, c)
+    return (logits, aux) if return_aux else logits
+
+
+def loss_fn(
+    params: Dict,
+    batch: Dict[str, torch.Tensor],  # tokens [B,S], targets [B,S], mask [B,S]
+    config: TransformerConfig,
+) -> torch.Tensor:
+    logits, aux = forward(params, batch["tokens"], config, return_aux=True)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, batch["targets"][..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(ll)
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if config.moe_experts:
+        ce = ce + config.moe_aux_weight * aux / config.n_layers
+    return ce

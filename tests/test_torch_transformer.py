@@ -1,0 +1,159 @@
+"""Parity of the port's transformer (ray_tpu_torch/models/transformer.py)
+with the JAX reference, on the CPU.
+
+JAX initializes the weights; they cross as numpy arrays through
+``params_from_numpy``. Token ids come from a numpy seed. Tolerance: atol 1e-4
+on logits and loss for the ``tiny`` config in float32 (the same math; matmul
+summation order differs between XLA and PyTorch).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.models import generation as jgen
+from ray_tpu.models import transformer as jtf
+from ray_tpu_torch.models import transformer as ttf
+from ray_tpu_torch.models.convert import params_from_numpy
+
+ATOL = 1e-4
+
+PRESETS = ["tiny", "bench_400m", "small_1b", "serve_7b", "gptj_6b"]
+
+
+def _configs(**kw):
+    return (dataclasses.replace(jtf.TransformerConfig.tiny(),
+                                dtype=jnp.float32, **kw),
+            dataclasses.replace(ttf.TransformerConfig.tiny(),
+                                dtype=torch.float32, **kw))
+
+
+def _jax_params(jcfg, seed=0):
+    jp = jtf.init_params(jcfg, jax.random.key(seed))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_presets_match_jax(name):
+    j = dataclasses.asdict(getattr(jtf.TransformerConfig, name)())
+    t = dataclasses.asdict(getattr(ttf.TransformerConfig, name)())
+    for key in ("dtype", "param_dtype"):  # the frameworks' dtype objects
+        j[key] = np.dtype(j[key]).name
+        t[key] = str(t[key]).removeprefix("torch.")
+    assert t == j
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{}, {"n_kv_heads": 2}, {"tie_embeddings": True}, {"moe_experts": 4}],
+    ids=["mha", "gqa", "tied", "moe"],
+)
+def test_init_tree_and_logical_axes_match_jax(kw):
+    jcfg, tcfg = _configs(**kw)
+    jshapes = jax.tree.map(lambda x: tuple(x.shape), jax.eval_shape(
+        lambda: jtf.init_params(jcfg, jax.random.key(0))))
+    tp = ttf.init_params(tcfg, 0, device="cpu")
+    assert _shapes(tp) == jshapes
+    assert ttf.param_logical_axes(tcfg) == jtf.param_logical_axes(jcfg)
+
+
+def test_init_params_dtype_and_seed():
+    _, tcfg = _configs()
+    a = ttf.init_params(tcfg, 3, device="cpu")
+    b = ttf.init_params(tcfg, 3, device="cpu")
+    c = ttf.init_params(tcfg, 4, device="cpu")
+    assert torch.equal(a["embed"], b["embed"])
+    assert not torch.equal(a["embed"], c["embed"])
+    assert a["layers"]["attn"]["wq"].dtype == tcfg.param_dtype
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "flash"])
+@pytest.mark.parametrize("n_kv_heads", [None, 2], ids=["mha", "gqa"])
+def test_forward_and_loss_match_jax(attn_impl, n_kv_heads):
+    jcfg, tcfg = _configs(attn_impl=attn_impl, n_kv_heads=n_kv_heads)
+    jp, tp = _jax_params(jcfg)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    targets = rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    mask = (rng.random((2, 64)) < 0.8).astype(np.float32)
+
+    ref = jtf.forward(jp, jnp.asarray(tokens), jcfg)
+    out = ttf.forward(tp, torch.from_numpy(tokens), tcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+    jbatch = {"tokens": tokens, "targets": targets, "mask": mask}
+    tbatch = {k: torch.from_numpy(v) for k, v in jbatch.items()}
+    ref_loss = jtf.loss_fn(jp, {k: jnp.asarray(v) for k, v in jbatch.items()},
+                           jcfg)
+    loss = ttf.loss_fn(tp, tbatch, tcfg)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=ATOL)
+    del tbatch["mask"], jbatch["mask"]  # the unmasked mean
+    np.testing.assert_allclose(
+        ttf.loss_fn(tp, tbatch, tcfg).item(),
+        float(jtf.loss_fn(jp, {k: jnp.asarray(v) for k, v in jbatch.items()},
+                          jcfg)),
+        atol=ATOL)
+
+
+@pytest.mark.parametrize("pos_rank", [1, 2])
+def test_rotary_matches_jax(pos_rank):
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((3, 5, 4, 16), dtype=np.float32)
+    k = rng.standard_normal((3, 5, 2, 16), dtype=np.float32)
+    pos = (np.arange(5) if pos_rank == 1
+           else rng.integers(0, 100, (3, 5))).astype(np.int32)
+    jq, jk = jtf._rotary(jnp.asarray(q), jnp.asarray(k), 8, jnp.asarray(pos))
+    tq, tk = ttf._rotary(torch.from_numpy(q), torch.from_numpy(k), 8,
+                         torch.from_numpy(pos))
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-5)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5)
+
+
+def test_rms_norm_matches_jax_in_bf16():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 3, 64), dtype=np.float32)
+    scale = rng.standard_normal(64, dtype=np.float32)
+    ref = jtf._rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale))
+    out = ttf._rms_norm(torch.from_numpy(x).bfloat16(),
+                        torch.from_numpy(scale))
+    assert out.dtype == torch.bfloat16
+    # one bf16 rounding of the normalized value, one of the product
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_bf16_params_cross_bit_exact():
+    jcfg, tcfg = _configs()
+    jp = jtf.init_params(jcfg, jax.random.key(0))
+    jbf, _ = jgen.prepare_for_inference(
+        jp, dataclasses.replace(jcfg, dtype=jnp.bfloat16))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jbf), device="cpu")
+    ref = np.asarray(jbf["layers"]["attn"]["wq"]).astype(np.float32)
+    got = tp["layers"]["attn"]["wq"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_unported_attention_raises(impl):
+    _, tcfg = _configs(attn_impl=impl)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ttf.select_attn_fn(tcfg)
+
+
+def test_moe_layer_raises():
+    _, tcfg = _configs(moe_experts=4)
+    tp = ttf.init_params(tcfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ttf.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg)
