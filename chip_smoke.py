@@ -2,18 +2,30 @@
 
     python3 chip_smoke.py
 
-Run from the repo root on a machine with one CUDA card. Three phases; any
+Run from the repo root on a machine with one CUDA card. Five phases; any
 failure raises and the script exits non-zero without a result line:
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
-   sm_90a, one process per source, all at once), holds each against its plain
-   PyTorch version on the card, and times kernel, plain version and the
-   library yardstick at the 400M model's shapes (CUDA events, after warm-up).
+   sm_90a, one process per source, all at once), holds the forward kernel
+   and the two backward kernels (dQ, dK/dV) against their plain PyTorch
+   versions on the card, and times kernels, plain versions and the library
+   yardsticks (SDPA forward and backward) at the 400M model's shapes (CUDA
+   events, after warm-up).
 2. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
    the logits must agree with the dense-attention forward.
-3. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
+3. train: ``bench_400m`` (remat "dots", flash) through
+   ``make_sharded_state`` / ``make_train_step`` / ``default_optimizer`` on
+   one seeded batch [8, 2048] repeated: 2 warm-up and 5 timed steps, each
+   launching the forward kernel 48 times (forward and remat recompute) and
+   each backward kernel 24 times; loss and grad norm finite, the loss
+   falling; step ms, tokens/s, MFU, peak memory and a profiled step.
+4. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
+   at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
+   bf16 train steps' losses and grad norms, flash against dense (step 1
+   held to a tolerance, the rest reported).
+5. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
    greedy requests from client threads; then, in float32 with TF32 off, the
    engine's greedy tokens for 3 interleaved prompts must EQUAL ``generate``'s.
 
@@ -115,6 +127,43 @@ def attention_bound_ms(b, s, h, d, dtype, causal) -> tuple:
                                  else "bytes"), flops
 
 
+def attention_bwd_bound_ms(b, s, h, hkv, d, dtype, causal, kernel) -> tuple:
+    """The least time the card could take for one backward kernel
+    (``kernel`` "dq" or "dkv"): the larger of the operations of the unmasked
+    (q, k) pairs (dq: q.k, dO.v, ds.k, 6D; dkv: q.k, dO.v, p.dO, ds.q, 8D)
+    over the peak rate for the type, and the bytes it must move over the
+    memory rate (dq: q, k, v, dO read, dQ written; dkv: q, k, v, dO read,
+    dK and dV written; both read lse and delta, fp32 [B, H, S])."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = (6 if kernel == "dq" else 8) * d * b * h * pairs
+    elem = torch.finfo(dtype).bits // 8
+    q_bytes, kv_bytes = b * s * h * d * elem, b * s * hkv * d * elem
+    nbytes = (3 * q_bytes + 2 * kv_bytes if kernel == "dq"
+              else 2 * q_bytes + 4 * kv_bytes) + 2 * 4 * b * h * s
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops
+
+
+def check_bwd_bounds() -> dict:
+    """The backward bounds at bench_400m's shape, held to the figures
+    worked out by hand: 134,283,264 unmasked pairs; dQ 1.031e11 FLOP,
+    >= 0.104 ms, ~169 MB (0.050 ms); dK/dV 1.375e11 FLOP, >= 0.139 ms,
+    ~202 MB (0.060 ms); operations bound both."""
+    b, s, h, d = MAIN_SHAPE
+    out = {}
+    for kernel, flops_want, ms_want in (("dq", 1.031e11, 0.104),
+                                        ("dkv", 1.375e11, 0.139)):
+        ms, by, flops = attention_bwd_bound_ms(b, s, h, h, d, torch.bfloat16,
+                                               True, kernel)
+        check(abs(flops / flops_want - 1) < 1e-3 and abs(ms - ms_want) < 1e-3
+              and by == "operations",
+              f"{kernel} bound {flops} FLOP, {ms} ms, {by}")
+        out[kernel] = (ms, by, flops)
+    return out
+
+
 # Tolerances of the kernel against its plain version (dense fp32 scores,
 # exact softmax, o rounded once to the input type):
 # - bf16: the kernel rounds p to bf16 before p.v (as the TPU kernel does,
@@ -125,6 +174,16 @@ def attention_bound_ms(b, s, h, d, dtype, causal) -> tuple:
 # - lse is fp32 in both: 1e-4 absolute (values ~ log S + max score).
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 LSE_ATOL = 1e-4
+# Tolerances of the backward kernels against their plain version, which
+# rounds p and ds to the input type at the same places (dense fp32 scores,
+# fp32 sums):
+# - bf16: dQ, dK, dV are rounded to bf16 once (2^-8 relative), and p and ds
+#   are rounded to bf16 from fp32 values that differ in their last bits
+#   (summation order, expf), so a few terms of each sum land one bf16 ulp
+#   apart (2^-9 relative each) before sums over up to S * n_rep terms.
+#   Allowed: 2e-2 + 2e-2 * |ref|, a few bf16 ulps at the grads' magnitude.
+# - fp32: only the summation order and expf differ: 1e-4 + 1e-4 * |ref|.
+BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 
 
 def compare_kernel(fa, gen, shape, hkv, dtype, causal) -> tuple:
@@ -145,7 +204,37 @@ def compare_kernel(fa, gen, shape, hkv, dtype, causal) -> tuple:
     check(bool(torch.isfinite(o.float()).all()), f"non-finite o in {case}")
     check(bool((err <= atol + rtol * ref_o.float().abs()).all())
           and lse_err <= LSE_ATOL, f"kernel disagrees with plain: {case}")
-    return case, (q, k, v)
+    return case, (q, k, v, o, lse)
+
+
+def compare_bwd(fa, gen, q, k, v, o, lse, causal, strided_do=False) -> tuple:
+    """The dQ and dK/dV kernels against ``flash_attention_bwd_reference`` on
+    the forward kernel's o and lse and a random dO (with ``strided_do``, a
+    [B, H, S, D] tensor seen as [B, S, H, D], read through its strides)."""
+    b, s, h, d = q.shape
+    if strided_do:
+        do = torch.randn((b, h, s, d), generator=gen,
+                         device="cuda").to(q.dtype).transpose(1, 2)
+    else:
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    atol, rtol = BWD_TOL[q.dtype]
+    case = {"shape": [b, s, h, d], "kv_heads": k.shape[2],
+            "dtype": str(q.dtype).removeprefix("torch."), "causal": causal,
+            "strided_do": strided_do, "atol": atol, "rtol": rtol}
+    ok = True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype
+              and bool(torch.isfinite(g.float()).all()),
+              f"{name} of the wrong shape, dtype or not finite: {case}")
+        err = (g.float() - w.float()).abs()
+        case[f"{name}_max_abs_err"] = err.max().item()
+        case[f"{name}_ref_max_abs"] = w.float().abs().max().item()
+        ok &= bool((err <= atol + rtol * w.float().abs()).all())
+    check(ok, f"backward kernels disagree with plain: {case}")
+    return case, do
 
 
 def phase_kernel() -> dict:
@@ -158,38 +247,71 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     b, s, h, d = MAIN_SHAPE
+    shapes = [
+        ((2, 512, 8, 128), 8, torch.bfloat16, False),
+        ((2, 512, 8, 128), 2, torch.bfloat16, True),  # GQA
+        ((2, 1000, 8, 128), 8, torch.bfloat16, True),  # ragged S
+        ((2, 1000, 8, 128), 2, torch.bfloat16, False),
+        ((1, 384, 4, 256), 4, torch.bfloat16, True),  # gptj_6b's D
+        ((2, 300, 8, 128), 2, torch.float32, True),
+        ((1, 333, 4, 64), 4, torch.float32, False),
+    ]
     with torch.inference_mode():
-        main, (q, k, v) = compare_kernel(fa, gen, MAIN_SHAPE, h,
-                                         torch.bfloat16, True)
-        cases = [main] + [
-            compare_kernel(fa, gen, shape, hkv, dtype, causal)[0]
-            for shape, hkv, dtype, causal in [
-                ((2, 512, 8, 128), 8, torch.bfloat16, False),
-                ((2, 512, 8, 128), 2, torch.bfloat16, True),  # GQA
-                ((2, 1000, 8, 128), 8, torch.bfloat16, True),  # ragged S
-                ((2, 1000, 8, 128), 2, torch.bfloat16, False),
-                ((1, 384, 4, 256), 4, torch.bfloat16, True),  # gptj_6b's D
-                ((2, 300, 8, 128), 2, torch.float32, True),
-                ((1, 333, 4, 64), 4, torch.float32, False),
-            ]
-        ]
+        main, (q, k, v, o, lse) = compare_kernel(fa, gen, MAIN_SHAPE, h,
+                                                 torch.bfloat16, True)
+        main_bwd, do = compare_bwd(fa, gen, q, k, v, o, lse, True)
+        cases, bwd_cases = [main], [main_bwd]
+        for shape, hkv, dtype, causal in shapes:
+            case, ins = compare_kernel(fa, gen, shape, hkv, dtype, causal)
+            cases.append(case)
+            bwd_cases.append(compare_bwd(fa, gen, *ins, causal)[0])
+        # dO as autograd may hand it over: not contiguous
+        bwd_cases.append(compare_bwd(fa, gen, q, k, v, o, lse, True,
+                                     strided_do=True)[0])
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 20)
         plain_ms = cuda_ms(
             lambda: fa.flash_attention_fwd_reference(q, k, v, True), 5)
-        # yardstick only: the port never calls SDPA
+        delta = fa.flash_attention_delta(o, do)
+        dq_ms = cuda_ms(lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse,
+                                                       delta, True), 20)
+        dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse,
+                                                         delta, True), 20)
+        delta_ms = cuda_ms(lambda: fa.flash_attention_delta(o, do), 20)
+        bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, True), 3)
+        # yardsticks only: the port never calls SDPA
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_ms(lambda: torch.nn.functional.
                              scaled_dot_product_attention(
                                  qt, kt, vt, is_causal=True), 20)
+    qt, kt, vt = (x.transpose(1, 2).clone().requires_grad_(True)
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    dot = do.transpose(1, 2).clone()
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+    del out, qt, kt, vt, dot
     bound_ms, bound_by, flops = attention_bound_ms(b, s, h, d,
                                                    torch.bfloat16, True)
+    bwd_bounds = check_bwd_bounds()
     out = {"phase": "kernel", "build_s": build_s,
            "libraries": {n: str(p.name) for n, p in libs.items()},
            "cases": cases, "kernel_ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "roofline_share": bound_ms / ms,
-           "tflops": flops / ms / 1e9}
+           "tflops": flops / ms / 1e9,
+           "bwd_cases": bwd_cases, "bwd_dq_ms": dq_ms, "bwd_dkv_ms": dkv_ms,
+           "bwd_delta_ms": delta_ms, "bwd_plain_ms": bwd_plain_ms,
+           "bwd_library_ms": library_bwd_ms}
+    for kernel, kms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        kbound, kby, kflops = bwd_bounds[kernel]
+        out[f"bwd_{kernel}_bound_ms"] = kbound
+        out[f"bwd_{kernel}_bound_by"] = kby
+        out[f"bwd_{kernel}_roofline_share"] = kbound / kms
+        out[f"bwd_{kernel}_tflops"] = kflops / kms / 1e9
     emit(out)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -240,6 +362,174 @@ def phase_forward(params, cfg) -> dict:
           and out["logits_max_abs_diff_vs_dense"] <= 0.5
           and agree >= 0.95 and abs(loss - dense_loss) <= 1e-2
           and np.isfinite(loss), f"flash forward disagrees with dense: {out}")
+    emit(out)
+    return out
+
+
+def train_batch(vocab: int, b: int, s: int, seed: int) -> dict:
+    """One seeded batch on the card: tokens, the targets shifted by one,
+    and a mask of ones."""
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(0, vocab, (b, s + 1))).cuda()
+    return {"tokens": ids[:, :-1], "targets": ids[:, 1:],
+            "mask": torch.ones((b, s), device=ids.device)}
+
+
+def train_flops(cfg, b: int, s: int) -> int:
+    """FLOPs of one train step as bench.py:228-230 counts them: 6 N per
+    token for the weights, plus the causal attention's products."""
+    return 6 * cfg.param_count() * b * s + (
+        12 * cfg.n_layers * cfg.n_heads * cfg.d_head * b * s * s // 2)
+
+
+def phase_train(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1],
+                warmup: int = 2, timed: int = 5) -> dict:
+    """``bench_400m`` trained on the card through the port's entry points:
+    one seeded batch, repeated; every step must launch the forward kernel
+    twice per layer (forward and remat recompute) and each backward kernel
+    once per layer."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import (
+        default_optimizer,
+        make_sharded_state,
+        make_train_step,
+    )
+
+    check(cfg.attn_impl == "flash" and cfg.remat
+          and cfg.remat_policy == "dots", "bench_400m trains with flash "
+          "attention under remat 'dots'")
+    opt = default_optimizer()
+    state, _ = make_sharded_state(cfg, opt, SEED)
+    step = make_train_step(cfg, opt)
+    batch = train_batch(cfg.vocab_size, b, s, SEED + 2)
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, events, launches = [], [], []
+    for _ in range(warmup + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        counts = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        check(counts == want, f"train step launched flash fwd/dq/dkv "
+              f"{counts} times, not {want}")
+        launches.append(counts)
+        metrics.append(m)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    step_ms = [a.elapsed_time(e) for a, e in events[warmup:]]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses}, {norms}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    flops = train_flops(cfg, b, s)
+    prof = device_profile(lambda: step(state, batch))
+    # The same step under remat "full", which runs no selective-checkpoint
+    # dispatch mode on the host (and recomputes more on the device): is the
+    # host's queueing time the policy's?
+    full = make_train_step(dataclasses.replace(cfg, remat_policy="full"), opt)
+    full(state, batch)  # warm-up
+    prof_full = device_profile(lambda: full(state, batch))
+    del state, step, full, metrics
+    torch.cuda.empty_cache()
+    out = {"phase": "train", "batch": [b, s], "n_layers": cfg.n_layers,
+           "remat_policy": cfg.remat_policy, "losses": losses,
+           "grad_norms": norms, "step_ms": step_ms, "step_ms_mean": mean_ms,
+           "tokens_per_s": b * s / mean_ms * 1e3, "flops_per_step": flops,
+           "mfu": flops / (mean_ms / 1e3) / PEAK_BF16_FLOPS,
+           "launches_per_step": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv"), launches[-1])),
+           "max_memory_allocated_bytes": peak_mem, "profile": prof,
+           "profile_remat_full": prof_full}
+    emit(out)
+    return out
+
+
+# Flash against dense attention through the whole model:
+# - fp32 (TF32 off), 2 layers: the same math with sums in another order and
+#   expf; each leaf's grads may differ by 2e-4 of that leaf's largest dense
+#   grad (a wrong mask or GQA sum moves them by O(1) of it).
+# - bf16, full depth, the first train step: the two attentions round p and
+#   ds at different places through 24 layers; loss within 2e-3 and grad
+#   norm within 5e-3 relative (both ~1e-4 on the card).
+GRAD_FP32_RTOL = 2e-4
+STEP_LOSS_ATOL, STEP_NORM_RTOL = 2e-3, 5e-3
+
+
+def phase_grad(cfg, b32: int = 2, b: int = MAIN_SHAPE[0],
+               s: int = MAIN_SHAPE[1], steps: int = 7) -> dict:
+    from ray_tpu_torch.models.transformer import (
+        init_params,
+        loss_fn,
+        tree_leaves,
+        tree_map,
+    )
+    from ray_tpu_torch.parallel import (
+        default_optimizer,
+        make_sharded_state,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      init_params(cfg32, SEED))
+    batch = train_batch(cfg.vocab_size, b32, s, SEED + 3)
+    grads = {}
+    for impl in ("flash", "dense"):
+        loss = loss_fn(params, batch,
+                       dataclasses.replace(cfg32, attn_impl=impl))
+        grads[impl] = (loss.item(),
+                       torch.autograd.grad(loss, tree_leaves(params)))
+    ratios = [((f - d).abs().max() / d.abs().max().clamp_min(1e-30)).item()
+              for f, d in zip(grads["flash"][1], grads["dense"][1])]
+    out = {"phase": "grad", "fp32_layers": 2, "fp32_batch": [b32, s],
+           "fp32_loss_flash": grads["flash"][0],
+           "fp32_loss_dense": grads["dense"][0],
+           "fp32_grad_max_rel_err": max(ratios),
+           "fp32_grad_rtol": GRAD_FP32_RTOL}
+    check(max(ratios) <= GRAD_FP32_RTOL
+          and abs(grads["flash"][0] - grads["dense"][0]) <= 1e-4,
+          f"fp32 flash grads disagree with dense: {out}")
+    del grads, params
+    torch.cuda.empty_cache()
+
+    # The train phase's run again (same init, same batch), beside the same
+    # steps with dense attention: step 1 is held to the tolerances above;
+    # the later steps are reported, to tell the optimizer's dynamics on a
+    # repeated batch from the kernels'.
+    init = init_params(cfg, SEED)
+    batch = train_batch(cfg.vocab_size, b, s, SEED + 2)
+    traj = {}
+    for impl in ("flash", "dense"):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        opt = default_optimizer()
+        state, _ = make_sharded_state(icfg, opt, SEED,
+                                      params=tree_map(torch.clone, init))
+        step = make_train_step(icfg, opt)
+        ms = [step(state, batch)[1] for _ in range(steps)]
+        traj[impl] = [(m["loss"].item(), m["grad_norm"].item()) for m in ms]
+        del state, step, ms
+        torch.cuda.empty_cache()
+    (lf, nf), (ld, nd) = traj["flash"][0], traj["dense"][0]
+    out.update({"bf16_step_loss_flash": lf, "bf16_step_loss_dense": ld,
+                "bf16_step_grad_norm_flash": nf,
+                "bf16_step_grad_norm_dense": nd,
+                "bf16_losses_flash": [x[0] for x in traj["flash"]],
+                "bf16_losses_dense": [x[0] for x in traj["dense"]],
+                "bf16_grad_norms_flash": [x[1] for x in traj["flash"]],
+                "bf16_grad_norms_dense": [x[1] for x in traj["dense"]]})
+    check(bool(np.isfinite([lf, ld, nf, nd]).all())
+          and abs(lf - ld) <= STEP_LOSS_ATOL
+          and abs(nf / nd - 1) <= STEP_NORM_RTOL,
+          f"bf16 flash train step disagrees with dense: {out}")
     emit(out)
     return out
 
@@ -370,22 +660,42 @@ def main() -> int:
     kernel = phase_kernel()
     cfg = TransformerConfig.bench_400m()
     params = init_params(cfg, SEED)
-    fwd = phase_forward(params, cfg)
+    phase_forward(params, cfg)
+    train = phase_train(cfg)
+    phase_grad(cfg)
     phase_serve(params, cfg)
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:72",
-        "launches": fwd["flash_launches"],
-        "max_abs_err": kernel["cases"][0]["max_abs_err"],
-        "ms": kernel["kernel_ms"],
-        "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"],
-        "library_ms": kernel["library_ms"],
-    }]})
+    per_step = train["launches_per_step"]
+    main_bwd = kernel["bwd_cases"][0]
+    emit({"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:72",
+         "launches": per_step["flash_fwd"],
+         "max_abs_err": kernel["cases"][0]["max_abs_err"],
+         "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
+         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+         "library_ms": kernel["library_ms"]},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:158",
+         "launches": per_step["flash_bwd_dq"],
+         "max_abs_err": main_bwd["dq_max_abs_err"],
+         "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_plain_ms"],
+         "bound_ms": kernel["bwd_dq_bound_ms"],
+         "bound_by": kernel["bwd_dq_bound_by"],
+         "library_ms": kernel["bwd_library_ms"]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:197",
+         "launches": per_step["flash_bwd_dkv"],
+         "max_abs_err": max(main_bwd["dk_max_abs_err"],
+                            main_bwd["dv_max_abs_err"]),
+         "ms": kernel["bwd_dkv_ms"], "plain_ms": kernel["bwd_plain_ms"],
+         "bound_ms": kernel["bwd_dkv_bound_ms"],
+         "bound_by": kernel["bwd_dkv_bound_by"],
+         "library_ms": kernel["bwd_library_ms"]},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
-"""Moves parameters from the JAX package into the port.
+"""Moves parameters between the JAX package and the port.
 
 The two packages share one parameter tree (dict keys and stacked ``[L, ...]``
 shapes), so weights cross as numpy arrays: ``jax.tree.map(np.asarray,
-params)`` on the JAX side, ``params_from_numpy`` here.
+params)`` on the JAX side, ``params_from_numpy`` here; ``params_to_numpy``
+is the way back.
 """
 
 from __future__ import annotations
@@ -33,3 +34,17 @@ def params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
     of tensors on ``device`` (CUDA by default), dtypes kept."""
     dev = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a).to(dev), tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16 of its own
+        t = t.float()
+    return t.numpy().copy()
+
+
+def params_to_numpy(tree: Dict) -> Dict:
+    """A tree of tensors -> the same tree of numpy arrays on the host
+    (dtypes kept, except bf16, which comes back as the float32 of the same
+    values)."""
+    return tree_map(_to_numpy, tree)

@@ -8,19 +8,28 @@ model is plain functions on tensors over that tree:
 - a Python loop over the stacked L axis in place of ``lax.scan``;
 - the GPT-J parallel block, rotary embeddings, RMSNorm, optional GQA;
 - attention pluggable: ``dense`` (``ops/attention.py``) or ``flash`` (the
-  hand-written CUDA kernel of ``ops/flash_attention.py``).
+  hand-written CUDA kernels of ``ops/flash_attention.py``, forward and
+  backward);
+- ``remat_wrap``: each layer under ``torch.utils.checkpoint`` with the
+  reference's policies ("full", "dots", "dots_attn").
 
-This slice ports the forward value only: ``remat`` has no effect without
-gradients, and the ring/ulysses attentions and the MoE FFN are not ported yet.
+Gradients flow through ``forward`` and ``loss_fn`` by autograd. The
+ring/ulysses attentions and the MoE FFN are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import causal_attention
@@ -51,6 +60,22 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    def param_count(self) -> int:
+        d, f, h, kv, dh = (
+            self.d_model,
+            self.d_ff,
+            self.n_heads,
+            self.kv_heads,
+            self.d_head,
+        )
+        if self.moe_experts:
+            ffn = d * self.moe_experts + 2 * self.moe_experts * d * f
+        else:
+            ffn = 2 * d * f
+        per_layer = d * dh * (h + 2 * kv) + h * dh * d + ffn + d
+        head = 0 if self.tie_embeddings else d * self.vocab_size
+        return self.vocab_size * d + self.n_layers * per_layer + d + head
 
     # ---- canonical sizes (the same as the JAX package's) ----
     @staticmethod
@@ -104,9 +129,24 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> List:
+    """The leaves of a tree of nested dicts, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for val in tree.values() for leaf in tree_leaves(val)]
+    return [tree]
+
+
 def layer_params(params: Dict, i: int) -> Dict:
     """ONE layer's params (no leading L dim) from the stacked tree."""
     return tree_map(lambda x: x[i], params["layers"])
+
+
+def unbind_layers(params: Dict, n_layers: int) -> List[Dict]:
+    """Every layer's params, from one ``unbind`` per stacked leaf: its
+    backward stacks the L layer grads once, where ``x[i]`` per layer would
+    materialize a full-size zero grad for each layer."""
+    per_leaf = tree_map(lambda x: x.unbind(0), params["layers"])
+    return [tree_map(lambda xs: xs[i], per_leaf) for i in range(n_layers)]
 
 
 def init_params(config: TransformerConfig, seed: int,
@@ -266,6 +306,9 @@ def apply_layer(
     v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wv"].to(c.dtype))
     q, k = _rotary(q, k, c.rotary_dim, positions)
     attn_out = attn_fn(q, k, v)
+    if c.remat and c.remat_policy == "dots_attn":
+        # The policy saves it by this name; no other policy needs the copy.
+        attn_out = checkpoint_name(attn_out, "attn_out")
     a = torch.einsum("bshk,hkd->bsd", attn_out,
                      lp["attn"]["wo"].to(c.dtype))
     m = torch.einsum("bsd,df->bsf", h, lp["mlp"]["wi"].to(c.dtype))
@@ -273,6 +316,78 @@ def apply_layer(
     m = torch.einsum("bsf,fd->bsd", m, lp["mlp"]["wo"].to(c.dtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + a + m, aux
+
+
+@torch.library.custom_op("ray_tpu_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The counterpart of ``jax.ad_checkpoint.checkpoint_name``: a copy of
+    ``x`` that a selective-checkpoint policy can recognise by ``name``. An op
+    of its own, since a policy sees ops, not values (a custom op may not
+    return its input, hence the copy)."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+_aten = torch.ops.aten
+
+
+def _saves_dots(op, args) -> bool:
+    """The counterpart of ``dots_with_no_batch_dims_saveable``: a matrix
+    product without batch dims. The einsums of a layer's projections lower
+    to ``mm`` or to ``bmm`` over a batch of 1; the attention einsums (batch
+    and heads) to ``bmm`` over B * H."""
+    if op in (_aten.mm.default, _aten.addmm.default):
+        return True
+    return op is _aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if _saves_dots(op, args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_attn_policy(ctx, op, *args, **kwargs):
+    if _saves_dots(op, args) or (
+            op is torch.ops.ray_tpu_torch.checkpoint_name.default
+            and args[1] == "attn_out"):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(layer_fn: Callable, config: TransformerConfig) -> Callable:
+    """``layer_fn`` under ``torch.utils.checkpoint`` as ``remat_policy``
+    says: "full" saves nothing; "dots" saves matrix products without batch
+    dims (elementwise work is recomputed); "dots_attn" also saves the
+    attention output. As in the reference, the flash custom-vjp's residuals
+    (o, lse) are saved by none of them, so the forward kernel runs again in
+    the backward under every policy."""
+    if not config.remat:
+        return layer_fn
+    if config.remat_policy == "full":
+        context_fn = None
+    elif config.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+    elif config.remat_policy == "dots_attn":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_attn_policy)
+    else:
+        raise ValueError(f"unknown remat_policy {config.remat_policy!r}")
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():  # nothing to save for a backward
+            return layer_fn(*args)
+        return checkpoint(layer_fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def lm_head(params: Dict, x: torch.Tensor, config: TransformerConfig):
@@ -295,8 +410,10 @@ def forward(
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     attn_fn = select_attn_fn(c)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(c.n_layers):
-        x, a = apply_layer(x, layer_params(params, i), c, positions, attn_fn)
+    layer = remat_wrap(
+        lambda x, lp: apply_layer(x, lp, c, positions, attn_fn), c)
+    for lp in unbind_layers(params, c.n_layers):
+        x, a = layer(x, lp)
         aux = aux + a
     logits = lm_head(params, x, c)
     return (logits, aux) if return_aux else logits

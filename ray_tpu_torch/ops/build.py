@@ -2,9 +2,10 @@
 
 Each source under ``csrc/`` has a plain C interface and is compiled for
 Hopper (``sm_90a``) into a shared library under ``ray_tpu_torch/_build/``
-(git-ignored) at first use. The library's name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing is built when a module is imported.
+(git-ignored) at first use. The library's name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale library is never loaded. Nothing is built when a module
+is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -44,10 +45,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -26,15 +26,13 @@
 // The fp32 path (used to check the algorithm on the card) is plain FMA with
 // the same tiling of the q axis and the same online softmax.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // NEG_INF of ray_tpu/ops/attention.py:16
-constexpr int kBlockM = 64;        // q rows per block
-constexpr int kThreads = 128;      // four warps
+using namespace flash;
+
+constexpr int kBlockM = 64;  // q rows per block
 
 struct Params {
   const void* q;
@@ -56,53 +54,6 @@ struct Params {
 __device__ __forceinline__ int kv_tiles(const Params& p, int q0, int block_n) {
   const int kv_end = p.causal ? min(q0 + kBlockM, p.S) : p.S;
   return (kv_end + block_n - 1) / block_n;
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_halves(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one 16x8x16 tile: a row-major 16x16, b 16x8 (k-major), fp32 c.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies rows [row0, row0 + rows) of one head into a shared tile of row pitch
-// DP + 8 (the pad spreads the fragment reads over all banks), 16 bytes a
-// thread; zeros past S and past D.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int row0, int rows,
-                                          int S, int D) {
-  constexpr int kPitch = DP + 8;
-  constexpr int kChunks = DP / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S && c < D) {
-      val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kPitch + c) = val;
-  }
 }
 
 // bf16 kernel. DP: head dim padded to the template (D <= DP, D % 16 == 0).

@@ -1,18 +1,29 @@
-"""Flash attention forward: a hand-written CUDA C++ kernel for Hopper.
+"""Flash attention, forward and backward: hand-written CUDA C++ kernels for
+Hopper.
 
-Port of the forward half of ``ray_tpu/ops/flash_attention.py``
-(``flash_attention`` :322, ``_fwd`` :120). The kernel, ``csrc/flash_fwd.cu``,
-replaces the Pallas TPU kernel ``_fwd_kernel`` (:72): causal (or full)
-softmax attention over [B, S, H, D] that never writes the S x S scores, and
-the row logsumexp ``lse`` that the backward kernels will need.
+Port of ``ray_tpu/ops/flash_attention.py`` (``flash_attention`` :322,
+``_fwd`` :120, ``_bwd`` :244, the ``custom_vjp`` at :306-319). Three kernels
+replace the three Pallas TPU kernels:
 
-Device rule: tensors on the CPU go to the plain PyTorch version
-(``flash_attention_fwd_reference``), which the CPU tests hold against JAX.
-CUDA tensors launch the kernel, or raise; nothing falls back. ``launches``
-counts kernel launches, so a run can show its path went through the kernel.
+- ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel`` (:72): causal (or full)
+  softmax attention over [B, S, H, D] that never writes the S x S scores, and
+  the row logsumexp ``lse`` the backward needs;
+- ``csrc/flash_bwd.cu`` replaces ``_bwd_dq_kernel`` (:158) with its dQ kernel
+  and ``_bwd_dkv_kernel`` (:197) with its dK/dV kernel, which recompute p
+  from ``lse`` blockwise.
 
-The backward kernels come with the training slice: with gradients enabled
-and an input that requires grad, the wrapper raises.
+``flash_attention`` is differentiable: with gradients enabled and an input
+that requires grad it goes through ``_FlashAttention``, the counterpart of
+``custom_vjp``, which saves (q, k, v, o, lse) and runs both backward kernels.
+delta = rowsum(dO * O) is one torch expression before them, as in the
+reference (:247).
+
+Device rule: tensors on the CPU go to the plain PyTorch versions
+(``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``), which
+the CPU tests hold against JAX. CUDA tensors launch the kernels, or raise;
+nothing falls back. ``launches``, ``launches_bwd_dq`` and
+``launches_bwd_dkv`` count kernel launches, so a run can show its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -24,18 +35,21 @@ import torch
 
 from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
-launches = 0  # kernel launches since import (or since a caller reset it)
+# Kernel launches since import (or since a caller reset them).
+launches = 0  # flash_fwd
+launches_bwd_dq = 0  # flash_bwd_dq
+launches_bwd_dkv = 0  # flash_bwd_dkv
 
 _SUPPORTED = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
-_fn = None
+_fns = {}
 
 
 def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the kernel: dense fp32 scores, NEG_INF mask,
-    softmax and logsumexp. Returns (o in q's dtype [B, S, H, D],
+    """The plain version of the forward kernel: dense fp32 scores, NEG_INF
+    mask, softmax and logsumexp. Returns (o in q's dtype [B, S, H, D],
     lse fp32 [B, H, S])."""
     s, d = q.shape[1], q.shape[3]
     n_rep = q.shape[2] // k.shape[2]
@@ -50,13 +64,43 @@ def flash_attention_fwd_reference(
     return o.to(q.dtype), lse
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of both backward kernels (``_bwd``, :244): dense
+    fp32 scores with the NEG_INF mask, delta = rowsum(dO * O),
+    p = exp(s - lse), ds = p (dp - delta) scale; p and ds are rounded to the
+    input dtype before the products that consume them, as the TPU kernels
+    do. dK and dV sum over the n_rep q heads of each kv head (GQA). Returns
+    (dq, dk, dv), each in its input's dtype."""
+    s, h, d = q.shape[1], q.shape[2], q.shape[3]
+    hkv = k.shape[2]
+    n_rep = h // hkv
+    dt = q.dtype
+    scale = d ** -0.5
+    qf = q.float()
+    kf = repeat_kv(k, n_rep).float()
+    vf = repeat_kv(v, n_rep).float()
+    dof = do.to(dt).float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # [B, H, S]
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        scores = scores.masked_fill(pos[:, None] < pos[None, :], NEG_INF)
+    p = torch.exp(scores - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    b = q.shape[0]
+    dk = dk.reshape(b, s, hkv, n_rep, d).sum(3)
+    dv = dv.reshape(b, s, hkv, n_rep, d).sum(3)
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q, k, v) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet: it comes with the "
-            "training slice; run the forward under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(
             f"expected q [B,S,H,D] and k, v [B,S,Hkv,D]; got {tuple(q.shape)}, "
@@ -70,6 +114,10 @@ def _check(q, k, v) -> None:
         )
 
 
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """x itself when the kernel can read it through its strides (unit last
     stride, 16-byte aligned rows), else a contiguous copy."""
@@ -78,23 +126,37 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ARGTYPES = {
+    # q, k, v, o, lse, dtype, B, S, H, Hkv, D, 12 strides, scale, causal, stream
+    ("flash_fwd", "flash_fwd"):
+        [_P] * 5 + [_I] * 6 + [_I64] * 12 + [ctypes.c_float, _I, _P],
+    # q, k, v, dout, lse, delta, dq, dtype, B, S, H, Hkv, D, strides*, scale,
+    # causal, stream
+    ("flash_bwd", "flash_bwd_dq"):
+        [_P] * 7 + [_I] * 6 + [_P, ctypes.c_float, _I, _P],
+    # the same with dk, dv in place of dq
+    ("flash_bwd", "flash_bwd_dkv"):
+        [_P] * 8 + [_I] * 6 + [_P, ctypes.c_float, _I, _P],
+}
+
+
+def _kernel(lib: str, name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from ray_tpu_torch.ops.build import load
 
-        fn = load("flash_fwd").flash_fwd
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p] * 5 + [i] * 6 + [i64] * 12
-                       + [ctypes.c_float, i, p])
+        fn = getattr(load(lib), name)
+        fn.argtypes = _ARGTYPES[(lib, name)]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def _launch(q, k, v, causal: bool):
-    global launches
-    devs = {t.device for t in (q, k, v)}
+def _check_launch(q, k, v, *more) -> None:
+    """What every kernel needs: one CUDA device, one supported dtype, a head
+    dim the templates cover, and a grid that fits."""
+    devs = {t.device for t in (q, k, v, *more)}
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(
             f"flash attention kernel needs q, k, v on one CUDA device; got "
@@ -106,7 +168,6 @@ def _launch(q, k, v, causal: bool):
             f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     b, s, h, d = q.shape
-    hkv = k.shape[2]
     if d % 16 or not 16 <= d <= _MAX_D:
         raise ValueError(
             f"flash attention kernel needs a head dim that is a multiple of 16 "
@@ -114,10 +175,17 @@ def _launch(q, k, v, causal: bool):
         )
     if b * h > 65535 or s == 0:
         raise ValueError(f"flash attention kernel cannot take B*H={b * h}, S={s}")
+
+
+def _launch(q, k, v, causal: bool):
+    global launches
+    _check_launch(q, k, v)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = _kernel()
+    fn = _kernel("flash_fwd", "flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -133,15 +201,110 @@ def _launch(q, k, v, causal: bool):
     return o, lse
 
 
+def flash_attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, laid out [B, H, S] as lse."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal: bool):
+    """The checked operands and the ctypes arguments the two backward
+    kernels share: (q, k, v, do, lse, delta pointers), (dtype, B, S, H, Hkv,
+    D), (strides, scale, causal), and the strides' buffer, which must live
+    until the launch."""
+    _check_launch(q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do.to(q.dtype)))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    shape = (_SUPPORTED[q.dtype], b, s, h, k.shape[2], d)
+    tail = (ctypes.cast(strides, ctypes.c_void_p), d ** -0.5, int(causal))
+    return (q, k, v, do, lse, delta), ins, shape, tail, strides
+
+
+def _run(name: str, args, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _kernel("flash_bwd", name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool = True):
+    """dQ [B, S, H, D] in q's dtype from the dQ kernel (CUDA tensors only);
+    lse and delta are fp32 [B, H, S]."""
+    global launches_bwd_dq
+    ops, ins, shape, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal)
+    dq = torch.empty(ops[0].shape, dtype=q.dtype, device=q.device)
+    _run("flash_bwd_dq", (*ins, dq.data_ptr(), *shape, *tail), q.device)
+    launches_bwd_dq += 1
+    return dq
+
+
+def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool = True):
+    """(dK, dV) [B, S, Hkv, D] in k's and v's dtypes from the dK/dV kernel
+    (CUDA tensors only), summed over the q heads of each kv head."""
+    global launches_bwd_dkv
+    ops, ins, shape, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal)
+    dk = torch.empty(ops[1].shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(ops[2].shape, dtype=v.dtype, device=q.device)
+    _run("flash_bwd_dkv", (*ins, dk.data_ptr(), dv.data_ptr(), *shape, *tail),
+         q.device)
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def _fwd(q, k, v, causal: bool):
+    if _on_cpu(q, k, v):
+        return flash_attention_fwd_reference(q, k, v, causal)
+    return _launch(q, k, v, causal)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's inputs and residuals (o, lse) and the
+    output grad do: the plain version for CPU tensors, else the dQ and
+    dK/dV kernels."""
+    if _on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    delta = flash_attention_delta(o, do)
+    dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal)
+    return (dq, *flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of ``_flash``'s ``custom_vjp``: the forward kernel,
+    saving (q, k, v, o, lse); the backward kernels. lse is an output for
+    callers that want it, and carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = _fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do, ctx.causal), None)
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, S, H, D], k/v [B, S, Hkv, D] (Hkv divides H) -> (o [B, S, H, D]
-    in q's dtype, lse fp32 [B, H, S])."""
+    in q's dtype, lse fp32 [B, H, S]). Differentiable in q, k, v when
+    gradients are enabled and one of them requires grad."""
     _check(q, k, v)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_fwd_reference(q, k, v, causal)
-    return _launch(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _fwd(q, k, v, causal)
 
 
 def flash_attention(

@@ -16,6 +16,7 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch.models import convert, generation, transformer
+from ray_tpu_torch.parallel import train_step
 from ray_tpu_torch.serve import llm
 
 REPO = Path(__file__).resolve().parents[1]
@@ -46,7 +47,8 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
     every port module and chip_smoke.py; no jax* and no ray_tpu(.*) module
     may be loaded."""
     mods = _port_modules() + ["chip_smoke"]
-    assert "ray_tpu_torch.serve.llm" in mods
+    assert {"ray_tpu_torch.serve.llm",
+            "ray_tpu_torch.parallel.train_step"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -90,6 +92,8 @@ ENTRY_POINTS = {
         np.ones((1, 4), np.int64), _tiny(), max_new_tokens=2),
     "LLMEngine": lambda: llm.LLMEngine(
         transformer.init_params(_tiny(), 0, device="cpu"), _tiny()),
+    "make_sharded_state": lambda: train_step.make_sharded_state(
+        _tiny(), train_step.default_optimizer(), 0),
 }
 
 

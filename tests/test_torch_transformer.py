@@ -157,3 +157,130 @@ def test_moe_layer_raises():
     tp = ttf.init_params(tcfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttf.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg)
+
+
+def _grad_batch(vocab, seed=5, b=2, s=32):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
+            "targets": rng.integers(0, vocab, (b, s)).astype(np.int32),
+            "mask": (rng.random((b, s)) < 0.8).astype(np.float32)}
+
+
+def _torch_grads(tp, batch, tcfg):
+    params = ttf.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+    loss = ttf.loss_fn(params, {k: torch.from_numpy(v)
+                                for k, v in batch.items()}, tcfg)
+    return loss, torch.autograd.grad(loss, ttf.tree_leaves(params))
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "flash"])
+@pytest.mark.parametrize("n_kv_heads", [None, 2], ids=["mha", "gqa"])
+def test_loss_grads_match_jax(attn_impl, n_kv_heads):
+    """jax.grad(loss_fn) against the port's autograd, tiny config in fp32
+    from the same weights. atol 2e-5 on grads of magnitude up to ~1 (the
+    same math; summation order differs)."""
+    jcfg, tcfg = _configs(attn_impl=attn_impl, n_kv_heads=n_kv_heads)
+    jp, tp = _jax_params(jcfg)
+    batch = _grad_batch(jcfg.vocab_size)
+    jgrads = jax.grad(jtf.loss_fn)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    _, grads = _torch_grads(tp, batch, tcfg)
+    want = dict(jax.tree_util.tree_leaves_with_path(jgrads))
+    got = jax.tree_util.tree_leaves_with_path(
+        ttf.tree_map(lambda t: t.numpy(), _unflatten(tp, grads)))
+    assert len(got) == len(want)
+    for path, g in got:
+        np.testing.assert_allclose(g, np.asarray(want[path]), atol=2e-5,
+                                   err_msg=str(path))
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+    return ttf.tree_map(lambda _: next(it), like)
+
+
+def _count_flash_forwards(monkeypatch):
+    from ray_tpu_torch.ops import flash_attention as tflash
+
+    calls = [0]
+    plain = tflash.flash_attention_fwd_reference
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tflash, "flash_attention_fwd_reference", counted)
+    return calls
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_attn"])
+def test_remat_policies_give_the_grads_of_no_remat(policy, monkeypatch):
+    """Each policy recomputes what it does not save and must not change a
+    grad (atol 1e-6: the recompute runs the same ops on the same inputs).
+    As in the reference, the flash forward runs again in the backward under
+    every policy: 2 runs per layer, as chip_smoke.py asserts on the card."""
+    _, tcfg = _configs(attn_impl="flash")
+    tp = ttf.init_params(tcfg, 0, device="cpu")
+    batch = _grad_batch(tcfg.vocab_size)
+    calls = _count_flash_forwards(monkeypatch)
+    loss0, plain = _torch_grads(tp, batch, tcfg)
+    assert calls[0] == tcfg.n_layers
+    calls[0] = 0
+    loss, grads = _torch_grads(
+        tp, batch, dataclasses.replace(tcfg, remat=True, remat_policy=policy))
+    assert calls[0] == 2 * tcfg.n_layers
+    assert loss.item() == loss0.item()
+    for a, b in zip(grads, plain):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(tcfg):
+    tp = ttf.init_params(tcfg, 0, device="cpu")
+    params = ttf.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+    batch = {k: torch.from_numpy(v)
+             for k, v in _grad_batch(tcfg.vocab_size).items()}
+    loss = ttf.loss_fn(params, batch, tcfg)
+    with _CountOps() as ops:
+        loss.backward()
+    return ops.counts
+
+
+@pytest.mark.parametrize("policy,extra_bmm", [
+    ("dots", 2), ("dots_attn", 2), ("full", 7)])
+def test_remat_policy_recomputes_what_the_reference_does(policy, extra_bmm):
+    """Matrix products the backward runs beyond the no-remat backward, per
+    layer, with dense attention: "dots" saves the 5 projections (no batch
+    dims) and recomputes the 2 attention products (batch and heads), as
+    dots_with_no_batch_dims_saveable does; "dots_attn" also saves the
+    attention output (its checkpoint_name runs once, in the forward);
+    "full" recomputes all 7."""
+    _, tcfg = _configs(attn_impl="dense")
+    plain = _backward_ops(tcfg)["aten.bmm.default"]
+    ops = _backward_ops(
+        dataclasses.replace(tcfg, remat=True, remat_policy=policy))
+    assert ops["aten.bmm.default"] == plain + extra_bmm * tcfg.n_layers
+    assert "ray_tpu_torch.checkpoint_name.default" not in ops
+
+
+def test_unknown_remat_policy_raises():
+    _, tcfg = _configs(remat=True, remat_policy="everything")
+    tp = ttf.init_params(tcfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        ttf.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_param_count_matches_jax(name):
+    assert (getattr(ttf.TransformerConfig, name)().param_count()
+            == getattr(jtf.TransformerConfig, name)().param_count())
