@@ -1,12 +1,16 @@
 """On-card smoke of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase (what a check runs)
+    timeout 300 python3 chip_smoke.py kernel   # the kernel phase only
 
 Run from the repo root on a machine with one CUDA card. Five phases; any
-failure raises and the script exits non-zero without a result line:
+failure raises and the script exits non-zero without a result line. With
+the argument ``kernel`` it runs the kernel phase alone and prints no result
+line: the first call after a kernel changes, under ``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
-   sm_90a, one process per source, all at once), holds the forward kernel
+   sm_90a, one process per source, all at once) and prints ptxas's
+   registers, shared memory and spills for each; holds the forward kernel
    and the two backward kernels (dQ, dK/dV) against their plain PyTorch
    versions on the card, and times kernels, plain versions and the library
    yardsticks (SDPA forward and backward) at the 400M model's shapes (CUDA
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -80,7 +85,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, top: int = 6) -> dict:
+def device_profile(fn, top: int = 10) -> dict:
     """Runs ``fn()`` once under torch.profiler. Returns the host wall time,
     the time the host took to queue the work (until ``fn`` returned), the
     device's busy time (union of its kernel and copy intervals), the busy
@@ -237,6 +242,34 @@ def compare_bwd(fa, gen, q, k, v, o, lse, causal, strided_do=False) -> tuple:
     return case, do
 
 
+def ptxas_report(logs: dict) -> list:
+    """Registers, static shared memory and spills of every kernel in
+    nvcc's ``-Xptxas -v`` output, with any ptxas warning about a kernel
+    (an ignored setmaxnreg, serialized wgmma)."""
+    out, cur = [], None
+    for lib, log in logs.items():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = {"library": lib, "kernel": m.group(1), "warnings": []}
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            if "warning" in line.lower():
+                cur["warnings"].append(line.strip())
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def phase_kernel() -> dict:
     from ray_tpu_torch.ops import build
     from ray_tpu_torch.ops import flash_attention as fa
@@ -244,6 +277,10 @@ def phase_kernel() -> dict:
     t0 = time.perf_counter()
     libs = build.build(verbose=True)  # prints ptxas's register report
     build_s = time.perf_counter() - t0
+    report = ptxas_report(build.BUILD_LOGS)
+    dyn_smem = {d: fa.kernel_smem_bytes(d) for d in (64, 128, 256)}
+    emit({"phase": "kernel_build", "build_s": build_s, "ptxas": report,
+          "dynamic_smem_bytes_by_head_dim": dyn_smem})
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     b, s, h, d = MAIN_SHAPE
@@ -255,6 +292,20 @@ def phase_kernel() -> dict:
         ((1, 384, 4, 256), 4, torch.bfloat16, True),  # gptj_6b's D
         ((2, 300, 8, 128), 2, torch.float32, True),
         ((1, 333, 4, 64), 4, torch.float32, False),
+        # cases the wgmma/TMA kernels make risky: S below one tile, D 64
+        # (one 64-column block), GQA with n_rep 4 through the dK/dV ring,
+        # a head dim below one TMA box (zero-filled columns)
+        ((2, 40, 8, 128), 8, torch.bfloat16, True),
+        ((2, 512, 8, 64), 8, torch.bfloat16, True),
+        ((2, 1000, 8, 64), 8, torch.bfloat16, False),
+        ((2, 1024, 8, 128), 2, torch.bfloat16, True),
+        ((1, 200, 4, 32), 2, torch.bfloat16, True),
+        # D 64 (two dK/dV consumer warpgroups) with n_rep 4 and S mod 128 in
+        # 1..64: one ring item per q head on the last kv block, which the
+        # second warpgroup skips under the causal mask, over more items than
+        # ring stages
+        ((2, 40, 8, 64), 2, torch.bfloat16, True),
+        ((2, 192, 8, 64), 2, torch.bfloat16, True),
     ]
     with torch.inference_mode():
         main, (q, k, v, o, lse) = compare_kernel(fa, gen, MAIN_SHAPE, h,
@@ -297,6 +348,7 @@ def phase_kernel() -> dict:
     bwd_bounds = check_bwd_bounds()
     out = {"phase": "kernel", "build_s": build_s,
            "libraries": {n: str(p.name) for n, p in libs.items()},
+           "ptxas": report, "dynamic_smem_bytes_by_head_dim": dyn_smem,
            "cases": cases, "kernel_ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "roofline_share": bound_ms / ms,
@@ -645,11 +697,14 @@ def phase_serve(params, cfg) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
+    if argv not in ([], ["kernel"]):
+        print("usage: chip_smoke.py [kernel]", file=sys.stderr)
+        return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
     smi = subprocess.run(
@@ -658,6 +713,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     kernel = phase_kernel()
+    if argv == ["kernel"]:
+        print(smi, flush=True)
+        return 0
     cfg = TransformerConfig.bench_400m()
     params = init_params(cfg, SEED)
     phase_forward(params, cfg)
@@ -703,4 +761,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -29,6 +29,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output of each library built by this process (with ptxas's register,
+# shared-memory and spill report when built verbose).
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -79,6 +82,7 @@ def build(names: Optional[Iterable[str]] = None,
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         os.replace(tmp, out)
+        BUILD_LOGS[name] = log
         if verbose:
             print(f"[build {name}]\n{log}", flush=True)
     return {name: library_path(name) for name in names}

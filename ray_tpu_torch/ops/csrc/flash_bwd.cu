@@ -17,40 +17,59 @@
 // unmasked (q, k) pairs per head and batch row summed; dQ does 3 products of
 // 2D FLOP per pair (q k^T, dO v^T, ds k: 1.03e11 FLOP, >= 0.104 ms) and dK/dV
 // 4 (q k^T, dO v^T, p^T dO, ds^T q: 1.37e11 FLOP, >= 0.139 ms), against
-// ~0.05-0.06 ms to move their ~170-200 MB. Both are compute-bound, so the
-// design keeps every product on the tensor cores (mma.sync m16n8k16, bf16 in,
-// fp32 accumulate), keeps p and ds in registers (a product's accumulator
-// tiles are the next product's A fragment), and skips the tiles that the
-// causal mask empties (the @pl.when skips at :169 and :209), which halves
-// the work. wgmma, TMA and warp specialisation are left for a later change.
+// ~0.05-0.06 ms to move their ~170-200 MB. Both are compute-bound; both skip
+// the tiles that the causal mask empties (the @pl.when skips at :169 and
+// :209), which halves the work.
 //
-// dq kernel: one block per (64-row q tile, batch * head), four warps of 16 q
-// rows; q, dO, lse and delta of its rows stay in the block while it loops
-// over kv tiles up to the diagonal. Each block owns its dQ rows: no atomics.
+// dq kernel (mma.sync m16n8k16, csrc/flash_common.cuh): one block per
+// (64-row q tile, batch * head), four warps of 16 q rows; q, dO, lse and
+// delta of its rows stay in the block while it loops over kv tiles up to the
+// diagonal, p and ds kept in registers as the next product's A fragment.
+// Each block owns its dQ rows: no atomics.
 //
-// dkv kernel: one block per (64-row kv tile, batch * kv head); the products
-// are taken transposed (s^T = k q^T, dp^T = v dO^T) so kv rows are the M
-// dimension and both fp32 accumulators stay in registers. It loops over the
-// n_rep q heads that share its kv head and, for each, over 32-row q tiles
-// from the first that reaches the kv tile to the end, so the GQA sum of the
-// repeated heads happens inside the block: deterministic, no atomics. At
-// D 256 two accumulators of 16 x 256 per warp would not fit the 255
-// registers of a thread, so the block's output columns are split in chunks
-// of 128 (grid z), each chunk recomputing s^T and dp^T.
+// dkv kernel (wgmma, TMA, warp specialisation; csrc/hopper.cuh): one block
+// per (kv tile, batch * kv head). Only wgmma reaches the tensor cores' full
+// rate, so the design keeps all four products on it and feeds it from a TMA
+// ring:
+// - Consumer warpgroups of 64 kv rows each and a producer warpgroup. A
+//   consumer keeps dK and dV in fp32 registers for the whole loop, beside
+//   s^T and dp^T: 192 registers at D 128. With two consumers (384 threads,
+//   setmaxnreg 240 / 24) ptxas spilled and serialized the wgmmas (C7512;
+//   0.68 ms against 0.43 ms on the card), so at D 128 and 256 a block is
+//   one consumer warpgroup and the producer (256 threads, up to 255
+//   registers, no setmaxnreg); at D 64 (128 registers) it is two.
+// - K and V are copied once by TMA and stay in shared memory. The q and dO
+//   tiles (64 rows) stream through a ring of NS stages (3 at D <= 128; full
+//   and empty mbarriers) by TMA over [B, S, H, D] tensor maps, so a strided
+//   dO from autograd needs no copy; the producer lanes copy the tile's lse
+//   (times log2 e) and delta rows beside them. The ring runs over the n_rep q heads
+//   of the kv head and, under the causal mask, from the first q tile that
+//   reaches the kv tile: the GQA sum happens inside the block,
+//   deterministic, no atomics.
+// - s^T = k q^T and dp^T = v dO^T: wgmma with k, v and q, dO from shared
+//   memory (K-major). p^T and ds^T are made in registers (exp2, masks only on
+//   diagonal and ragged tiles) and packed to bf16 as register A operands of
+//   dV += p^T dO and dK += ds^T q, with dO and q read as MN-major (transpose
+//   bit): no thread gathers an operand.
+// - D 256: two 64 x 256 fp32 accumulators do not fit a thread's registers,
+//   so the block's output columns are split in chunks of 128 (grid z), each
+//   chunk recomputing s^T and dp^T.
+// - kv tiles are the slow grid dim, so the tiles with the most q tiles
+//   (the first, under the causal mask) are scheduled first.
 //
-// Ragged S: q rows past S are zero-filled and their lse/delta read as 0, and
-// p is forced to 0 there, so nothing from them reaches dK/dV; rows past S are
-// never stored. The fp32 kernels (used to check the algorithm on the card)
-// are plain FMA on shared tiles, with the same loops and masks.
+// Ragged S: TMA zero-fills q, dO, k and v rows past S, their lse/delta read
+// as 0 and p is forced to 0 there, so nothing from them reaches dK/dV; rows
+// past S are never stored. The fp32 kernels (used to check the algorithm on
+// the card) are plain FMA on shared tiles, with the same loops and masks.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBlockM = 64;  // dq: q rows per block; dkv: kv rows per block
-constexpr int kBlockQ = 32;  // dkv: q rows per inner tile
+constexpr int kBlockM = 64;  // dq: q rows per block
 
 struct Params {
   const void* q;
@@ -198,142 +217,240 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(Params p) {
   }
 }
 
-// DC: output columns per block (grid z splits DP into DP / DC chunks).
-template <int DP, int DC>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(Params p) {
-  constexpr int kPitch = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kBlockM * kPitch;
-  __nv_bfloat16* sQ = sV + kBlockM * kPitch;
-  __nv_bfloat16* sO = sQ + kBlockQ * kPitch;  // dO
-  float* sL = reinterpret_cast<float*>(sO + kBlockQ * kPitch);  // lse of the q tile
-  float* sD = sL + kBlockQ;                                     // delta
+// ---------------------------------------------------------------------------
+// bf16 dK/dV kernel (wgmma, TMA, warp specialisation)
+// ---------------------------------------------------------------------------
 
-  const int bhk = blockIdx.y;
+struct DkvParams {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const float* lse;    // [B, H, S]
+  const float* delta;  // [B, H, S]
+  void* dk;            // contiguous [B, S, Hkv, D]
+  void* dv;
+  int S, H, Hkv, D, n_rep;
+  float scale, scale_log2;  // scale, scale * log2(e)
+  int causal;
+};
+
+constexpr int kRowsQ = 64;  // q rows per ring tile
+
+// DP: head dim padded to the template (D <= DP); DC: output columns per
+// block (grid z splits DP into DP / DC chunks); NWG: consumer warpgroups,
+// 64 kv rows each; NS: ring stages.
+template <int DP, int DC, int NWG, int NS>
+struct DkvSmem {
+  static constexpr int kRowsK = 64 * NWG;      // kv rows per block
+  static constexpr int kKV = kRowsK * DP * 2;  // bytes of the k (or v) tile
+  static constexpr int kQ = kRowsQ * DP * 2;   // bytes of one q (or dO) tile
+  static constexpr int kStats = 2 * kRowsQ * 4;  // lse * log2(e) and delta of a tile
+  static constexpr int kBars = 1 + 2 * NS;     // k and v; full, empty per stage
+  static constexpr int kBytes = 1024 + 2 * kKV + NS * (2 * kQ + kStats) + 8 * kBars;
+};
+
+template <int DP, int DC, int NWG, int NS>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ DkvParams p) {
+  using L = DkvSmem<DP, DC, NWG, NS>;
+  constexpr int BK = L::kRowsK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1024-byte alignment
+  const uint32_t sV = sK + L::kKV;
+  const uint32_t sRing = sV + L::kKV;  // stage s: q, then dO
+  const uint32_t sStats = sRing + NS * 2 * L::kQ;
+  const uint32_t bars = sStats + NS * L::kStats;
+  float* stats = reinterpret_cast<float*>(smem_raw + (sStats - raw));
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + NS + s); };
+  auto sQ = [&](int s) { return sRing + 2u * s * L::kQ; };
+  auto sO = [&](int s) { return sRing + (2u * s + 1u) * L::kQ; };
+
+  const int bhk = blockIdx.x;
   const int b = bhk / p.Hkv;
   const int hk = bhk % p.Hkv;
-  const int n_rep = p.H / p.Hkv;
-  const int k0 = blockIdx.x * kBlockM;
+  const int k0 = blockIdx.y * BK;
   const int dc0 = blockIdx.z * DC;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<DP>(sK, K, p.k_ss, k0, kBlockM, p.S, p.D);
-  load_tile<DP>(sV, V, p.v_ss, k0, kBlockM, p.S, p.D);
+  // The ring runs over the n_rep q heads of the kv head and, for each, over
+  // the q tiles from the first that reaches the kv tile (causal) to the end.
+  const int i0 = p.causal ? k0 / kRowsQ : 0;
+  const int per_rep = (p.S + kRowsQ - 1) / kRowsQ - i0;
+  const int n_items = p.n_rep * per_rep;
+  // Warpgroup index, broadcast from lane 0 so the compiler sees it is uniform
+  // across each warp: the role branches below then do not diverge inside a
+  // warpgroup, which setmaxnreg and wgmma need.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r_lo = warp * 16 + g;
-  const int ka = k0 + r_lo;  // global positions of the lane's two kv rows
-  const int kb = ka + 8;
-
-  float dk[DC / 8][4], dv[DC / 8][4];
-#pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full(s), 32);          // every producer lane
+      hopper::mbar_init(empty(s), 4 * NWG);    // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  // Under the causal mask, q tiles wholly before the kv tile are empty.
-  const int i0 = p.causal ? k0 / kBlockQ : 0;
-  const int n_q = (p.S + kBlockQ - 1) / kBlockQ;
-  for (int r = 0; r < n_rep; ++r) {
-    const int h = hk * n_rep + r;
-    const __nv_bfloat16* Q =
-        static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dO =
-        static_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    const long long stat = (static_cast<long long>(b) * p.H + h) * p.S;
-    for (int i = i0; i < n_q; ++i) {
-      const int qt0 = i * kBlockQ;
-      __syncthreads();  // the previous q tile is consumed
-      load_tile<DP>(sQ, Q, p.q_ss, qt0, kBlockQ, p.S, p.D);
-      load_tile<DP>(sO, dO, p.o_ss, qt0, kBlockQ, p.S, p.D);
-      for (int c = threadIdx.x; c < kBlockQ; c += kThreads) {
-        const int qi = qt0 + c;
-        sL[c] = qi < p.S ? p.lse[stat + qi] : 0.f;
-        sD[c] = qi < p.S ? p.delta[stat + qi] : 0.f;
+  if (wg == NWG) {
+    // Producer: one warp. Lane 0 issues the TMA copies; the lanes copy the
+    // fp32 lse and delta rows (rows of a ragged S are not 16-byte aligned for
+    // a bulk copy) and each arrives on the stage's full barrier.
+    if constexpr (NWG > 1) hopper::setmaxnreg_dec<24>();
+    if (__shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 32), 0) == NWG * 4) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
+        hopper::tma_tile<DP>(sK, &p.tm_k, kv_full, BK, hk, k0, b);
+        hopper::tma_tile<DP>(sV, &p.tm_v, kv_full, BK, hk, k0, b);
       }
-      __syncthreads();
-
-      // s^T = k q^T and dp^T = v dO^T: kv rows by the tile's q columns.
-      float st[kBlockQ / 8][4], dpt[kBlockQ / 8][4];
-#pragma unroll
-      for (int n = 0; n < kBlockQ / 8; ++n) {
-        st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-        dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK, kPitch, r_lo, kk * 16, t);
-        load_a(av, sV, kPitch, r_lo, kk * 16, t);
-#pragma unroll
-        for (int n = 0; n < kBlockQ / 8; ++n) {
-          const __nv_bfloat16* qp = sQ + (n * 8 + g) * kPitch + kk * 16 + t * 2;
-          mma_bf16(st[n], ak, lds32(qp), lds32(qp + 8));
-          const __nv_bfloat16* op = sO + (n * 8 + g) * kPitch + kk * 16 + t * 2;
-          mma_bf16(dpt[n], av, lds32(op), lds32(op + 8));
-        }
-      }
-
-      // p^T (kept in st) and ds^T = p^T (dp^T - delta) scale (kept in dpt);
-      // p is 0 where masked and at q rows past S.
-#pragma unroll
-      for (int n = 0; n < kBlockQ / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + t * 2 + (e & 1);
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % NS;
+        const int h = hk * p.n_rep + it / per_rep;
+        const int qt0 = (i0 + it % per_rep) * kRowsQ;
+        hopper::mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+        const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+        float* st = stats + s * 2 * kRowsQ;
+        for (int c = lane; c < kRowsQ; c += 32) {
           const int qi = qt0 + c;
-          const int kr = e < 2 ? ka : kb;
-          const bool live = qi < p.S && !(p.causal && kr > qi);
-          const float pr = live ? expf(st[n][e] * p.scale - sL[c]) : 0.f;
-          st[n][e] = pr;
-          dpt[n][e] = pr * (dpt[n][e] - sD[c]) * p.scale;
+          st[c] = qi < p.S ? p.lse[row + qi] * 1.4426950408889634f : 0.f;
+          st[kRowsQ + c] = qi < p.S ? p.delta[row + qi] : 0.f;
         }
-      }
-
-      // dV += bf16(p^T) dO and dK += bf16(ds^T) q over this block's columns:
-      // dO and q are the B operands [q, d].
-#pragma unroll
-      for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-        uint32_t ap[4], as[4];
-        acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-        acc_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
-        const __nv_bfloat16* op = sO + (kk * 16 + t * 2) * kPitch + dc0 + g;
-        const __nv_bfloat16* qp = sQ + (kk * 16 + t * 2) * kPitch + dc0 + g;
-#pragma unroll
-        for (int n = 0; n < DC / 8; ++n) {
-          const __nv_bfloat16* o2 = op + n * 8;
-          mma_bf16(dv[n], ap, pack_halves(o2[0], o2[kPitch]),
-                   pack_halves(o2[8 * kPitch], o2[9 * kPitch]));
-          const __nv_bfloat16* q2 = qp + n * 8;
-          mma_bf16(dk[n], as, pack_halves(q2[0], q2[kPitch]),
-                   pack_halves(q2[8 * kPitch], q2[9 * kPitch]));
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(full(s), 2 * L::kQ);
+          hopper::tma_tile<DP>(sQ(s), &p.tm_q, full(s), kRowsQ, h, qt0, b);
+          hopper::tma_tile<DP>(sO(s), &p.tm_do, full(s), kRowsQ, h, qt0, b);
+        } else {
+          hopper::mbar_arrive(full(s));
         }
       }
     }
-  }
+  } else {
+    // Consumers: warpgroup wg owns kv rows [kr0, kr0 + 64).
+    if constexpr (NWG > 1) hopper::setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kr0 = k0 + wg * 64;
+    const int ka = kr0 + warp * 16 + g;  // global positions of the thread's two kv rows
+    const int kb = ka + 8;
+    const float c = p.scale_log2;
 
-  const long long row = static_cast<long long>(p.Hkv) * p.D;
-  const long long base = static_cast<long long>(b) * p.S * row + hk * p.D;
-  __nv_bfloat16* dK = static_cast<__nv_bfloat16*>(p.dk) + base;
-  __nv_bfloat16* dV = static_cast<__nv_bfloat16*>(p.dv) + base;
+    float dk[DC / 2], dv[DC / 2];
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
-    const int col = dc0 + n * 8 + t * 2;
-    if (col < p.D) {
-      if (ka < p.S) {
-        *reinterpret_cast<uint32_t*>(dK + ka * row + col) = pack_floats(dk[n][0], dk[n][1]);
-        *reinterpret_cast<uint32_t*>(dV + ka * row + col) = pack_floats(dv[n][0], dv[n][1]);
+    for (int x = 0; x < DC / 2; ++x) dk[x] = dv[x] = 0.f;
+
+    const uint64_t k_desc = hopper::desc_k_major(sK + wg * 64 * 128);
+    const uint64_t v_desc = hopper::desc_k_major(sV + wg * 64 * 128);
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_items; ++it) {
+      const int s = it % NS;
+      const int qt0 = (i0 + it % per_rep) * kRowsQ;
+      // Every consumer waits for the stage to fill before it releases it,
+      // even one that skips the tile: a warpgroup that released stages it
+      // never saw filled could complete a phase of empty(s) alone, a lap
+      // ahead, while the other still reads the stage.
+      hopper::mbar_wait(full(s), (it / NS) & 1);
+      // q tiles wholly before this warpgroup's kv rows are empty (causal).
+      if (!p.causal || qt0 + kRowsQ - 1 >= kr0) {
+        // s^T = k q^T and dp^T = v dO^T: the warpgroup's 64 kv rows by the
+        // tile's 64 q columns.
+        float st[32], dpt[32];
+        const uint64_t q_desc = hopper::desc_k_major(sQ(s));
+        const uint64_t o_desc = hopper::desc_k_major(sO(s));
+        hopper::fence_acc(st);
+        hopper::fence_acc(dpt);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          // k step kk: 16 columns of column block kk / 4
+          const uint32_t col = (kk % 4) * 32u;
+          const uint32_t a_off = (kk / 4) * BK * 128 + col;
+          const uint32_t b_off = (kk / 4) * kRowsQ * 128 + col;
+          hopper::wgmma_ss<64>(st, hopper::desc_at(k_desc, a_off), hopper::desc_at(q_desc, b_off),
+                               kk > 0);
+          hopper::wgmma_ss<64>(dpt, hopper::desc_at(v_desc, a_off),
+                               hopper::desc_at(o_desc, b_off), kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc(st);
+        hopper::fence_acc(dpt);
+
+        // p^T = exp(scale s^T - lse) (0 where masked and at q rows past S)
+        // and ds^T = p^T (dp^T - delta) scale; masks only where the diagonal
+        // or the end of S crosses the tile.
+        const float* sL = stats + s * 2 * kRowsQ;
+        const float* sD = sL + kRowsQ;
+        const bool masked = (p.causal && qt0 < kr0 + 63) || qt0 + kRowsQ > p.S;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int cq = n * 8 + 2 * t;
+          const float2 lse2 = *reinterpret_cast<const float2*>(sL + cq);
+          const float2 dl = *reinterpret_cast<const float2*>(sD + cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * n + e;
+            float pr = exp2f(fmaf(st[x], c, -((e & 1) ? lse2.y : lse2.x)));
+            if (masked) {
+              const int qi = qt0 + cq + (e & 1);
+              const int kv = (e & 2) ? kb : ka;
+              if (qi >= p.S || (p.causal && kv > qi)) pr = 0.f;
+            }
+            st[x] = pr;
+            dpt[x] = pr * (dpt[x] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+          }
+        }
+        // bf16 p^T and ds^T as the A fragments of the 4 k steps (16 q rows
+        // each) of dV += p^T dO and dK += ds^T q.
+        uint32_t ap[4][4], as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            ap[kk][r] = pack_floats(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            as[kk][r] = pack_floats(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          }
+        }
+        const uint64_t qn_desc = hopper::desc_mn_major(sQ(s), kRowsQ * 128);
+        const uint64_t on_desc = hopper::desc_mn_major(sO(s), kRowsQ * 128);
+        hopper::fence_acc(dk);
+        hopper::fence_acc(dv);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // q rows 16 kk.., output columns dc0.. (column block dc0 / 64)
+          const uint32_t off = kk * 16 * 128 + (dc0 / 64) * kRowsQ * 128;
+          hopper::wgmma_rs<DC>(dv, ap[kk], hopper::desc_at(on_desc, off), 1);
+          hopper::wgmma_rs<DC>(dk, as[kk], hopper::desc_at(qn_desc, off), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc(dk);
+        hopper::fence_acc(dv);
       }
-      if (kb < p.S) {
-        *reinterpret_cast<uint32_t*>(dK + kb * row + col) = pack_floats(dk[n][2], dk[n][3]);
-        *reinterpret_cast<uint32_t*>(dV + kb * row + col) = pack_floats(dv[n][2], dv[n][3]);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
+    }
+
+    const long long row = static_cast<long long>(p.Hkv) * p.D;
+    const long long base = static_cast<long long>(b) * p.S * row + hk * p.D;
+    __nv_bfloat16* dK = static_cast<__nv_bfloat16*>(p.dk) + base;
+    __nv_bfloat16* dV = static_cast<__nv_bfloat16*>(p.dv) + base;
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n) {
+      const int col = dc0 + n * 8 + 2 * t;
+      if (col < p.D) {
+        if (ka < p.S) {
+          *reinterpret_cast<uint32_t*>(dK + ka * row + col) = pack_floats(dk[4 * n], dk[4 * n + 1]);
+          *reinterpret_cast<uint32_t*>(dV + ka * row + col) = pack_floats(dv[4 * n], dv[4 * n + 1]);
+        }
+        if (kb < p.S) {
+          *reinterpret_cast<uint32_t*>(dK + kb * row + col) =
+              pack_floats(dk[4 * n + 2], dk[4 * n + 3]);
+          *reinterpret_cast<uint32_t*>(dV + kb * row + col) =
+              pack_floats(dv[4 * n + 2], dv[4 * n + 3]);
+        }
       }
     }
   }
@@ -536,44 +653,73 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Params p) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int DP, int BN>
 cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
   const int smem = (2 * kBlockM + 2 * BN) * (DP + 8) * static_cast<int>(sizeof(__nv_bfloat16));
   const dim3 grid((p.S + kBlockM - 1) / kBlockM, p.B * p.H);
-  return launch(flash_bwd_dq_bf16_kernel<DP, BN>, grid, smem, p, stream);
+  return launch(flash_bwd_dq_bf16_kernel<DP, BN>, grid, kThreads, smem, p, stream);
 }
 
-template <int DP, int DC>
-cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
-  const int smem = (2 * kBlockM + 2 * kBlockQ) * (DP + 8) * static_cast<int>(sizeof(__nv_bfloat16)) +
-                   2 * kBlockQ * static_cast<int>(sizeof(float));
-  const dim3 grid((p.S + kBlockM - 1) / kBlockM, p.B * p.Hkv, DP / DC);
-  return launch(flash_bwd_dkv_bf16_kernel<DP, DC>, grid, smem, p, stream);
+// The one table from head dim to the bf16 dK/dV kernel's configuration:
+// returns f(layout) for the layout that flash_bwd_dkv launches at D.
+template <typename F>
+int with_dkv_config(int D, F f) {
+  if (D <= 64) return f(DkvSmem<64, 64, 2, 3>{});
+  if (D <= 128) return f(DkvSmem<128, 128, 1, 3>{});
+  return f(DkvSmem<256, 128, 1, 2>{});
+}
+
+template <int DP, int DC, int NWG, int NS>
+int launch_dkv_bf16(DkvSmem<DP, DC, NWG, NS>, const Params& p, cudaStream_t stream) {
+  using L = DkvSmem<DP, DC, NWG, NS>;
+  DkvParams dp;
+  int rc = hopper::encode_bshd(&dp.tm_q, p.q, p.B, p.S, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, kRowsQ);
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&dp.tm_do, p.dout, p.B, p.S, p.H, p.D, p.o_sb, p.o_ss, p.o_sh,
+                             kRowsQ);
+  }
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&dp.tm_k, p.k, p.B, p.S, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh,
+                             L::kRowsK);
+  }
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&dp.tm_v, p.v, p.B, p.S, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh,
+                             L::kRowsK);
+  }
+  if (rc != 0) return rc;
+  dp.lse = p.lse;
+  dp.delta = p.delta;
+  dp.dk = p.dk;
+  dp.dv = p.dv;
+  dp.S = p.S;
+  dp.H = p.H;
+  dp.Hkv = p.Hkv;
+  dp.D = p.D;
+  dp.n_rep = p.H / p.Hkv;
+  dp.scale = p.scale;
+  dp.scale_log2 = p.scale * 1.4426950408889634f;
+  dp.causal = p.causal;
+  // kv tiles in the slow grid dim: every (b, kv head) of tile 0, the tile
+  // with the most q tiles under the causal mask, is scheduled first.
+  const dim3 grid(p.B * p.Hkv, (p.S + L::kRowsK - 1) / L::kRowsK, DP / DC);
+  return static_cast<int>(launch(flash_bwd_dkv_bf16_kernel<DP, DC, NWG, NS>, grid,
+                                 128 * (NWG + 1), L::kBytes, dp, stream));
 }
 
 cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
   const int D = p.D, T = kTile32;
   const int floats = 3 * T * D + 2 * T * (D + 1) + T * (T + 1) + 2 * T;
   const dim3 grid((p.S + T - 1) / T, p.B * p.H);
-  return launch(flash_bwd_dq_f32_kernel, grid, floats * static_cast<int>(sizeof(float)), p,
-                stream);
+  return launch(flash_bwd_dq_f32_kernel, grid, kThreads, floats * static_cast<int>(sizeof(float)),
+                p, stream);
 }
 
 cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
   const int D = p.D, T = kTile32;
   const int floats = 4 * T * (D + 1) + 2 * T * D + 2 * T * (T + 1) + 2 * T;
   const dim3 grid((p.S + T - 1) / T, p.B * p.Hkv);
-  return launch(flash_bwd_dkv_f32_kernel, grid, floats * static_cast<int>(sizeof(float)), p,
-                stream);
+  return launch(flash_bwd_dkv_f32_kernel, grid, kThreads, floats * static_cast<int>(sizeof(float)),
+                p, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
@@ -643,9 +789,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                                strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (D <= 64) return static_cast<int>(launch_dkv_bf16<64, 64>(p, st));
-    if (D <= 128) return static_cast<int>(launch_dkv_bf16<128, 128>(p, st));
-    return static_cast<int>(launch_dkv_bf16<256, 128>(p, st));
+    return with_dkv_config(D, [&](auto layout) { return launch_dkv_bf16(layout, p, st); });
   }
   return static_cast<int>(launch_dkv_f32(p, st));
+}
+
+// Dynamic shared memory (bytes) of the bf16 kernel that flash_bwd_dkv
+// launches for head dim D.
+extern "C" int flash_bwd_dkv_smem_bytes(int D) {
+  return with_dkv_config(D, [](auto layout) { return decltype(layout)::kBytes; });
 }

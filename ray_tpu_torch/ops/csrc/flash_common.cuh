@@ -1,6 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// bf16 tensor-core products with mma.sync, fragment packing, and the padded
-// shared-memory tile load. All of them assume blocks of kThreads threads.
+// the mask value, fragment packing, and, for the dQ kernel, bf16 tensor-core
+// products with mma.sync and the padded shared-memory tile load. The
+// loops here assume blocks of kThreads threads (the dQ and fp32 kernels;
+// the wgmma kernels use csrc/hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,6 +84,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
     }
     *reinterpret_cast<uint4*>(dst + r * kPitch + c) = val;
   }
+}
+
+// Sets the kernel's dynamic shared memory and launches it on `stream`;
+// returns the CUDA error of the launch (a refused launch never runs, and only
+// this check reports it).
+template <typename Kernel, typename P>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const P& p,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace flash

@@ -10,29 +10,45 @@
 // model's shape (B 8, S 2048, H 8, D 128, causal, bf16) the two products need
 // 2 * B * H * S^2 * D ~ 6.9e10 FLOP (the causal half of 4 * B * H * S^2 * D),
 // >= ~70 us on the tensor cores, while q, k, v and o are only ~134 MB, ~40 us
-// at the memory rate. So it is compute-bound: the design keeps both products on
-// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate), keeps the
-// S x S scores out of device memory (online softmax in registers), reads each
-// k/v tile once per 64 query rows from shared memory, and stops the kv loop at
-// the diagonal tile under the causal mask (the counterpart of the @pl.when
-// skip at flash_attention.py:87), which halves the work.
+// at the memory rate. So it is compute-bound, and only wgmma reaches the
+// tensor cores' full rate. The bf16 design (csrc/hopper.cuh has the pieces):
 //
-// Grid: one block per (64-row q tile, batch * head); the kv axis, sequential
-// in the TPU grid, is a loop inside the block, since Hopper blocks run in no
-// order and carry nothing between them. Four warps, sixteen q rows each.
-// Ragged S is masked at both the q and the kv edge. wgmma, TMA and warp
-// specialisation are left for a later change.
+// - A block owns 128 q rows of one (batch row, head): two consumer
+//   warpgroups of 64 rows (one wgmma M each) and a producer warpgroup whose
+//   one thread issues every copy; setmaxnreg hands the producer's registers
+//   to the consumers. At D 64 and 128 the consumers (o, s and p of 128 kv
+//   columns) compile without spills. At D 256, where o alone is 128 fp32
+//   registers, two consumers spilled (ptxas, on the card), so a block there
+//   is one consumer warpgroup of 64 rows and the producer (256 threads, up
+//   to 255 registers, no setmaxnreg).
+// - TMA copies the q tile once, and the k and v tiles (BN rows) through a
+//   ring of NS stages (3 at D <= 128), each with full barriers for k and v
+//   and an empty barrier the consumer warps release. Tensor maps over
+//   [B, S, H, D] (dims D, H, S, B) read strided operands and the kv head
+//   h / n_rep without a copy and zero-fill rows past S and columns past D.
+// - s = q k^T: wgmma m64nBNk16, q and k from shared memory (K-major).
+//   o += p v: wgmma m64nDk16 with p from registers (the score accumulators
+//   rounded to bf16 pairs: one wgmma's accumulator layout is the next one's
+//   A fragment, as p.astype(v.dtype) at flash_attention.py:107) and v from
+//   shared memory as MN-major (transpose bit), so no thread gathers v.
+// - Online softmax in registers with exp2 and scale * log2(e) folded into one
+//   multiply-add; masks only on the tiles that the causal diagonal or the
+//   ragged end of S cross; tiles wholly above the diagonal are skipped (the
+//   counterpart of the @pl.when skip at :87), which halves the work.
+// - Under the causal mask the heaviest q tiles (the last ones) are scheduled
+//   first, so the last wave is made of short blocks.
 //
-// The fp32 path (used to check the algorithm on the card) is plain FMA with
-// the same tiling of the q axis and the same online softmax.
+// The fp32 path (used to check the algorithm on the card) is plain FMA on
+// 64-row q tiles with the same online softmax.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBlockM = 64;  // q rows per block
+constexpr int kBlockM = 64;  // fp32 kernel: q rows per block
 
 struct Params {
   const void* q;
@@ -49,173 +65,253 @@ struct Params {
   int causal;
 };
 
-// Number of kv tiles a q tile needs: under the causal mask, up to the tile
-// holding its last row.
-__device__ __forceinline__ int kv_tiles(const Params& p, int q0, int block_n) {
-  const int kv_end = p.causal ? min(q0 + kBlockM, p.S) : p.S;
+// Number of kv tiles a q tile of `rows` rows from q0 needs: under the causal
+// mask, up to the tile holding its last row.
+__device__ __forceinline__ int kv_tiles(int S, int causal, int q0, int rows, int block_n) {
+  const int kv_end = causal ? min(q0 + rows, S) : S;
   return (kv_end + block_n - 1) / block_n;
 }
 
-// bf16 kernel. DP: head dim padded to the template (D <= DP, D % 16 == 0).
-// BN: kv tile rows. Each warp owns 16 q rows; lane (g = lane / 4, t = lane % 4)
-// holds rows g and g + 8 of the warp's strip and columns 2t, 2t + 1 of each
-// 8-wide column tile, the accumulator layout of mma.m16n8k16.
-template <int DP, int BN>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(Params p) {
-  constexpr int kPitch = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBlockM * kPitch;
-  __nv_bfloat16* sV = sK + BN * kPitch;
+// ---------------------------------------------------------------------------
+// bf16 kernel (wgmma, TMA, warp specialisation)
+// ---------------------------------------------------------------------------
 
-  const int bh = blockIdx.y;
+struct TmaParams {
+  CUtensorMap tm_q, tm_k, tm_v;
+  void* o;
+  float* lse;  // [B, H, S]
+  int S, H, D, n_rep, n_q_tiles;
+  long long o_sb, o_ss, o_sh;
+  float scale, scale_log2;  // scale, scale * log2(e)
+  int causal;
+};
+
+// DP: head dim padded to the template (D <= DP); BN: kv rows per tile; NS:
+// ring stages; NWG: consumer warpgroups, 64 q rows each.
+template <int DP, int BN, int NS, int NWG>
+struct FwdSmem {
+  static constexpr int kRowsM = 64 * NWG;      // q rows per block
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kQ = kRowsM * DP * 2;  // bytes of the q tile
+  static constexpr int kKV = BN * DP * 2;     // bytes of one k or v tile
+  static constexpr int kBars = 1 + 3 * NS;    // q; k full, v full, empty per stage
+  static constexpr int kBytes = 1024 + kQ + 2 * NS * kKV + 8 * kBars;  // 1024: alignment slack
+};
+
+template <int DP, int BN, int NS, int NWG>
+__global__ void __launch_bounds__(FwdSmem<DP, BN, NS, NWG>::kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ TmaParams p) {
+  using L = FwdSmem<DP, BN, NS, NWG>;
+  constexpr int kRowsM = L::kRowsM;
+  // kv tiles start on q-tile boundaries, so under the causal mask every
+  // warpgroup has a live column in every tile its block loads.
+  static_assert(BN % kRowsM == 0, "BN must be a multiple of the block's q rows");
+  constexpr int ON = DP < 128 ? DP : 128;  // N of one p v wgmma
+  constexpr int NO = DP / ON;              // p v wgmmas per k step
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1024-byte alignment
+  const uint32_t sKV = sQ + L::kQ;              // stage s: k at sKV + 2s kKV, v after it
+  const uint32_t bars = sKV + 2 * NS * L::kKV;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + NS + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + 2 * NS + s); };
+  auto sK = [&](int s) { return sKV + 2u * s * L::kKV; };
+  auto sV = [&](int s) { return sKV + (2u * s + 1u) * L::kKV; };
+
+  const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * kBlockM;
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const int hk = h / p.n_rep;
+  const int qt = p.causal ? p.n_q_tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y;
+  const int q0 = qt * kRowsM;
+  const int n_tiles = kv_tiles(p.S, p.causal, q0, kRowsM, BN);
+  // Warpgroup index, broadcast from lane 0 so the compiler sees it is uniform
+  // across each warp: the role branches below then do not diverge inside a
+  // warpgroup, which setmaxnreg and wgmma need.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
 
-  load_tile<DP>(sQ, Q, p.q_ss, q0, kBlockM, p.S, p.D);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r_lo = warp * 16 + g;  // tile row of this lane's first row
-  const int qa = q0 + r_lo;        // global positions of its two rows
-  const int qb = qa + 8;
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(k_full(s), 1);
+      hopper::mbar_init(v_full(s), 1);
+      hopper::mbar_init(empty(s), 4 * NWG);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
   }
-  float m_a = kNegInf, m_b = kNegInf;  // running row max
-  float l_a = 0.f, l_b = 0.f;          // this lane's share of the row sum
+  __syncthreads();
 
-  const int n_tiles = kv_tiles(p, q0, BN);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile is consumed (and sQ is written)
-    load_tile<DP>(sK, K, p.k_ss, k0, BN, p.S, p.D);
-    load_tile<DP>(sV, V, p.v_ss, k0, BN, p.S, p.D);
-    __syncthreads();
+  if (wg == NWG) {
+    // Producer: one thread keeps the ring full.
+    if constexpr (NWG > 1) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * 128) {
+      hopper::mbar_arrive_expect_tx(q_full, L::kQ);
+      hopper::tma_tile<DP>(sQ, &p.tm_q, q_full, kRowsM, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        hopper::mbar_wait(empty(s), ((j / NS) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(k_full(s), L::kKV);
+        hopper::tma_tile<DP>(sK(s), &p.tm_k, k_full(s), BN, hk, j * BN, b);
+        hopper::mbar_arrive_expect_tx(v_full(s), L::kKV);
+        hopper::tma_tile<DP>(sV(s), &p.tm_v, v_full(s), BN, hk, j * BN, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns q rows [row0, row0 + 64).
+    if constexpr (NWG > 1) hopper::setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = q0 + wg * 64;
+    const int qa = row0 + warp * 16 + g;  // global positions of the thread's two rows
+    const int qb = qa + 8;
+    const float c = p.scale_log2;
 
-    // s = q k^T for this warp's 16 rows and the tile's BN columns.
-    float s[BN / 8][4];
+    float o[NO][ON / 2];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int i = 0; i < NO; ++i) {
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const __nv_bfloat16* qp = sQ + r_lo * kPitch + kk * 16 + t * 2;
-      const uint32_t a[4] = {lds32(qp), lds32(qp + 8 * kPitch), lds32(qp + 8),
-                             lds32(qp + 8 * kPitch + 8)};
+      for (int x = 0; x < ON / 2; ++x) o[i][x] = 0.f;
+    }
+    float m_a = kNegInf, m_b = kNegInf;  // running max of the raw scores
+    float l_a = 0.f, l_b = 0.f;          // this thread's share of the row sums
+
+    const uint64_t q_desc = hopper::desc_k_major(sQ + wg * 64 * 128);
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % NS;
+      const uint32_t parity = (j / NS) & 1;
+      const int k0 = j * BN;
+      hopper::mbar_wait(k_full(s), parity);
+      float sc[BN / 2];
+      const uint64_t k_desc = hopper::desc_k_major(sK(s));
+      hopper::fence_acc(sc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        // k step kk: 16 columns of column block kk / 4
+        const uint32_t col = (kk % 4) * 32u;
+        hopper::wgmma_ss<BN>(sc, hopper::desc_at(q_desc, (kk / 4) * kRowsM * 128 + col),
+                             hopper::desc_at(k_desc, (kk / 4) * BN * 128 + col), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(sc);
+
+      // Masks only where the diagonal or the end of S crosses the tile.
+      if ((p.causal && k0 + BN - 1 > row0) || k0 + BN > p.S) {
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) {
+          const int col = k0 + (x / 4) * 8 + 2 * t + (x & 1);
+          const int row = (x & 2) ? qb : qa;
+          if (col >= p.S || (p.causal && col > row)) sc[x] = kNegInf;
+        }
+      }
+      float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n) {
-        const __nv_bfloat16* kp = sK + (n * 8 + g) * kPitch + kk * 16 + t * 2;
-        mma_bf16(s[n], a, lds32(kp), lds32(kp + 8));
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
       }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = exp2f((m_a - mn_a) * c);
+      const float corr_b = exp2f((m_b - mn_b) * c);
+      m_a = mn_a;
+      m_b = mn_b;
+      const float off_a = mn_a * c;
+      const float off_b = mn_b * c;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        sc[4 * n] = exp2f(fmaf(sc[4 * n], c, -off_a));
+        sc[4 * n + 1] = exp2f(fmaf(sc[4 * n + 1], c, -off_a));
+        sc[4 * n + 2] = exp2f(fmaf(sc[4 * n + 2], c, -off_b));
+        sc[4 * n + 3] = exp2f(fmaf(sc[4 * n + 3], c, -off_b));
+        sum_a += sc[4 * n] + sc[4 * n + 1];
+        sum_b += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+      // The previous tile's p v has completed (waited below), so o can be
+      // rescaled here.
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+#pragma unroll
+        for (int x = 0; x < ON / 2; ++x) o[i][x] *= (x & 2) ? corr_b : corr_a;
+      }
+      // p in bf16 as the A fragments of the BN / 16 k steps of p v.
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_floats(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_floats(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_floats(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_floats(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+
+      hopper::mbar_wait(v_full(s), parity);
+      const uint64_t v_desc = hopper::desc_mn_major(sV(s), BN * 128);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) hopper::fence_acc(o[i]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+          // kv rows 16 kk.., output columns i ON.. (column block i ON / 64)
+          hopper::wgmma_rs<ON>(o[i], pa[kk],
+                               hopper::desc_at(v_desc, kk * 16 * 128 + (i * ON / 64) * BN * 128),
+                               1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < NO; ++i) hopper::fence_acc(o[i]);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
     }
 
-    // Scale, mask, and the running max of each row (a row spans one quad).
-    float mx_a = kNegInf, mx_b = kNegInf;
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t * 2 + (e & 1);
-        const int row = e < 2 ? qa : qb;
-        float x = s[n][e] * p.scale;
-        if (col >= p.S || (p.causal && col > row)) x = kNegInf;
-        s[n][e] = x;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    const float mn_a = fmaxf(m_a, mx_a);
-    const float mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = expf(m_a - mn_a);
-    const float corr_b = expf(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float den_a = fmaxf(l_a, 1e-30f);
+    const float den_b = fmaxf(l_b, 1e-30f);
+    const float inv_a = 1.f / den_a;
+    const float inv_b = 1.f / den_b;
 
-    float sum_a = 0.f, sum_b = 0.f;
+    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mn_a);
-      s[n][1] = expf(s[n][1] - mn_a);
-      s[n][2] = expf(s[n][2] - mn_b);
-      s[n][3] = expf(s[n][3] - mn_b);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
-    }
-    l_a = l_a * corr_a + sum_a;
-    l_b = l_b * corr_b + sum_b;
+    for (int i = 0; i < NO; ++i) {
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= corr_a;
-      acc[n][1] *= corr_a;
-      acc[n][2] *= corr_b;
-      acc[n][3] *= corr_b;
-    }
-
-    // acc += p v, with p rounded to bf16 first (as p.astype(v.dtype) at
-    // flash_attention.py:107). The score accumulators of two neighbouring
-    // column tiles are exactly the A fragment of one 16-deep k step.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_floats(s[2 * kk][0], s[2 * kk][1]),
-          pack_floats(s[2 * kk][2], s[2 * kk][3]),
-          pack_floats(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_floats(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const __nv_bfloat16* vp = sV + (kk * 16 + t * 2) * kPitch + g;
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const __nv_bfloat16* vq = vp + n * 8;
-        const uint32_t b0 = pack_halves(vq[0], vq[kPitch]);
-        const uint32_t b1 = pack_halves(vq[8 * kPitch], vq[9 * kPitch]);
-        mma_bf16(acc[n], a, b0, b1);
+      for (int n = 0; n < ON / 8; ++n) {
+        const int col = i * ON + n * 8 + 2 * t;
+        if (col < p.D) {
+          if (qa < p.S) {
+            *reinterpret_cast<uint32_t*>(O + qa * p.o_ss + col) =
+                pack_floats(o[i][4 * n] * inv_a, o[i][4 * n + 1] * inv_a);
+          }
+          if (qb < p.S) {
+            *reinterpret_cast<uint32_t*>(O + qb * p.o_ss + col) =
+                pack_floats(o[i][4 * n + 2] * inv_b, o[i][4 * n + 3] * inv_b);
+          }
+        }
       }
     }
-  }
-
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float den_a = fmaxf(l_a, 1e-30f);
-  const float den_b = fmaxf(l_b, 1e-30f);
-
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int col = n * 8 + t * 2;
-    if (col < p.D) {
-      if (qa < p.S) {
-        *reinterpret_cast<uint32_t*>(O + qa * p.o_ss + col) =
-            pack_floats(acc[n][0] / den_a, acc[n][1] / den_a);
-      }
-      if (qb < p.S) {
-        *reinterpret_cast<uint32_t*>(O + qb * p.o_ss + col) =
-            pack_floats(acc[n][2] / den_b, acc[n][3] / den_b);
-      }
+    if (t == 0) {
+      float* lse = p.lse + static_cast<long long>(bh) * p.S;
+      if (qa < p.S) lse[qa] = m_a * p.scale + logf(den_a);
+      if (qb < p.S) lse[qb] = m_b * p.scale + logf(den_b);
     }
-  }
-  if (t == 0) {
-    float* lse = p.lse + static_cast<long long>(bh) * p.S;
-    if (qa < p.S) lse[qa] = m_a + logf(den_a);
-    if (qb < p.S) lse[qb] = m_b + logf(den_b);
   }
 }
 
@@ -257,7 +353,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
     sL[r] = 0.f;
   }
 
-  const int n_tiles = kv_tiles(p, q0, kBlockN32);
+  const int n_tiles = kv_tiles(p.S, p.causal, q0, kBlockM, kBlockN32);
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBlockN32;
     __syncthreads();
@@ -320,33 +416,62 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   }
 }
 
-template <int DP, int BN>
-cudaError_t launch_bf16(const Params& p, dim3 grid, cudaStream_t stream) {
-  const int smem = (kBlockM + 2 * BN) * (DP + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_bf16_kernel<DP, BN><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+// The one table from head dim to the bf16 kernel's configuration: returns
+// f(layout) for the layout that flash_fwd launches at D.
+template <typename F>
+int with_fwd_config(int D, F f) {
+  if (D <= 64) return f(FwdSmem<64, 128, 3, 2>{});
+  if (D <= 128) return f(FwdSmem<128, 128, 3, 2>{});
+  return f(FwdSmem<256, 64, 2, 1>{});
+}
+
+template <int DP, int BN, int NS, int NWG>
+int launch_bf16(FwdSmem<DP, BN, NS, NWG>, const Params& p, cudaStream_t stream) {
+  using L = FwdSmem<DP, BN, NS, NWG>;
+  constexpr int kRowsM = L::kRowsM;
+  TmaParams tp;
+  int rc = hopper::encode_bshd(&tp.tm_q, p.q, p.B, p.S, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, kRowsM);
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&tp.tm_k, p.k, p.B, p.S, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, BN);
+  }
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&tp.tm_v, p.v, p.B, p.S, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, BN);
+  }
+  if (rc != 0) return rc;
+  tp.o = p.o;
+  tp.lse = p.lse;
+  tp.S = p.S;
+  tp.H = p.H;
+  tp.D = p.D;
+  tp.n_rep = p.H / p.Hkv;
+  tp.n_q_tiles = (p.S + kRowsM - 1) / kRowsM;
+  tp.o_sb = p.o_sb;
+  tp.o_ss = p.o_ss;
+  tp.o_sh = p.o_sh;
+  tp.scale = p.scale;
+  tp.scale_log2 = p.scale * 1.4426950408889634f;
+  tp.causal = p.causal;
+  const dim3 grid(p.B * p.H, tp.n_q_tiles);
+  return static_cast<int>(
+      launch(flash_fwd_bf16_kernel<DP, BN, NS, NWG>, grid, L::kThreads, L::kBytes, tp, stream));
 }
 
 cudaError_t launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
   const int D = p.D;
   const int floats = kBlockM * D + kBlockN32 * (D + 1) + kBlockN32 * D +
                      kBlockM * (kBlockN32 + 1) + kBlockM * D + 3 * kBlockM;
-  const int smem = floats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch(flash_fwd_f32_kernel, grid, kThreads, floats * static_cast<int>(sizeof(float)), p,
+                stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. Strides are in elements; the last dim is
-// contiguous. The caller checks shapes, dtypes and alignment. Returns the
-// CUDA error of the launch (0 on success).
+// contiguous. The caller checks shapes and dtypes, and (for the tensor maps
+// of the bf16 path) a 16-byte aligned base and strides that are positive
+// multiples of 16 bytes. Returns the CUDA error of the launch (0 on
+// success), or hopper::kErrNoEncodeEntryPoint / kErrEncode + CUresult when a
+// tensor map cannot be made.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int B, int S, int H, int Hkv, int D,
                          long long q_sb, long long q_ss, long long q_sh,
@@ -379,12 +504,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   p.o_sh = o_sh;
   p.scale = scale;
   p.causal = causal;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (D <= 64) return static_cast<int>(launch_bf16<64, 64>(p, grid, st));
-    if (D <= 128) return static_cast<int>(launch_bf16<128, 64>(p, grid, st));
-    return static_cast<int>(launch_bf16<256, 32>(p, grid, st));
+    return with_fwd_config(D, [&](auto layout) { return launch_bf16(layout, p, st); });
   }
+  const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
   return static_cast<int>(launch_f32(p, grid, st));
+}
+
+// Dynamic shared memory (bytes) of the bf16 kernel that flash_fwd launches
+// for head dim D.
+extern "C" int flash_fwd_smem_bytes(int D) {
+  return with_fwd_config(D, [](auto layout) { return decltype(layout)::kBytes; });
 }

@@ -12,6 +12,11 @@ replace the three Pallas TPU kernels:
   and ``_bwd_dkv_kernel`` (:197) with its dK/dV kernel, which recompute p
   from ``lse`` blockwise.
 
+In bf16 the forward and dK/dV kernels run on Hopper's wgmma, fed by TMA
+copies through tensor maps that the C entry points build per call over the
+operands as they lie (``csrc/hopper.cuh``); the dQ kernel and the fp32
+kernels read through strides with plain loads.
+
 ``flash_attention`` is differentiable: with gradients enabled and an input
 that requires grad it goes through ``_FlashAttention``, the counterpart of
 ``custom_vjp``, which saves (q, k, v, o, lse) and runs both backward kernels.
@@ -119,11 +124,36 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """x itself when the kernel can read it through its strides (unit last
-    stride, 16-byte aligned rows), else a contiguous copy."""
+    """x itself when every kernel can read it through its strides, else a
+    contiguous copy. The rules are TMA's, since the bf16 forward and dK/dV
+    kernels copy tiles with TMA through a tensor map over x as it lies, and
+    cuTensorMapEncodeTiled refuses anything else: a unit last stride, a
+    16-byte aligned base, and batch, sequence and head strides that are
+    positive multiples of 16 bytes. The kernels that load through strides
+    (dQ, fp32) need less, so one rule serves all. The copy is a clone, not
+    ``contiguous()``, which would hand back a contiguous tensor whose base
+    is misaligned as it is."""
+    nbytes = x.element_size()
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(st % 8 == 0 for st in x.stride()[:3]))
-    return x if ok else x.contiguous()
+          and all(st > 0 and st * nbytes % 16 == 0 for st in x.stride()[:3]))
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
+# Return codes of the entry points beside CUDA's own errors (csrc/hopper.cuh).
+_ERR_NO_ENCODE_ENTRY_POINT = 10000
+_ERR_ENCODE = 20000
+
+
+def _check_rc(name: str, rc: int) -> None:
+    if rc == 0:
+        return
+    if rc == _ERR_NO_ENCODE_ENTRY_POINT:
+        raise RuntimeError(f"{name}: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled entry point")
+    if rc >= _ERR_ENCODE:
+        raise RuntimeError(f"{name}: tensor map encode failed: CUresult "
+                           f"{rc - _ERR_ENCODE}")
+    raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -138,6 +168,9 @@ _ARGTYPES = {
     # the same with dk, dv in place of dq
     ("flash_bwd", "flash_bwd_dkv"):
         [_P] * 8 + [_I] * 6 + [_P, ctypes.c_float, _I, _P],
+    # D: dynamic shared memory of the bf16 kernel for that head dim
+    ("flash_fwd", "flash_fwd_smem_bytes"): [_I],
+    ("flash_bwd", "flash_bwd_dkv_smem_bytes"): [_I],
 }
 
 
@@ -151,6 +184,15 @@ def _kernel(lib: str, name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def kernel_smem_bytes(d: int) -> dict:
+    """Dynamic shared memory (bytes) of the bf16 forward and dK/dV kernels
+    at head dim ``d``, as their entry points launch them (builds the
+    libraries if needed)."""
+    return {"flash_fwd": _kernel("flash_fwd", "flash_fwd_smem_bytes")(d),
+            "flash_bwd_dkv": _kernel("flash_bwd",
+                                     "flash_bwd_dkv_smem_bytes")(d)}
 
 
 def _check_launch(q, k, v, *more) -> None:
@@ -196,8 +238,7 @@ def _launch(q, k, v, causal: bool):
                 o.stride(0), o.stride(1), o.stride(2),
                 d ** -0.5, int(causal), stream)
     launches += 1
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
+    _check_rc("flash_fwd", rc)
     return o, lse
 
 
@@ -228,8 +269,7 @@ def _run(name: str, args, device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernel("flash_bwd", name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _check_rc(name, rc)
 
 
 def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool = True):
