@@ -11,10 +11,10 @@ line: the first call after a kernel changes, under ``timeout``.
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
    registers, shared memory and spills for each; holds the forward kernel
-   and the two backward kernels (dQ, dK/dV) against their plain PyTorch
-   versions on the card, and times kernels, plain versions and the library
-   yardsticks (SDPA forward and backward) at the 400M model's shapes (CUDA
-   events, after warm-up).
+   and the two backward kernels (dQ with the delta it fuses, dK/dV on that
+   delta) against their plain PyTorch versions on the card, and times
+   kernels, plain versions and the library yardsticks (SDPA forward and
+   backward) at the 400M model's shapes (CUDA events, after warm-up).
 2. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
@@ -137,13 +137,15 @@ def attention_bwd_bound_ms(b, s, h, hkv, d, dtype, causal, kernel) -> tuple:
     (``kernel`` "dq" or "dkv"): the larger of the operations of the unmasked
     (q, k) pairs (dq: q.k, dO.v, ds.k, 6D; dkv: q.k, dO.v, p.dO, ds.q, 8D)
     over the peak rate for the type, and the bytes it must move over the
-    memory rate (dq: q, k, v, dO read, dQ written; dkv: q, k, v, dO read,
-    dK and dV written; both read lse and delta, fp32 [B, H, S])."""
+    memory rate (dq: q, k, v, dO, O read, dQ written, lse read and the delta
+    it fuses written; dkv: q, k, v, dO read, dK and dV written, lse and
+    delta read; lse and delta fp32 [B, H, S]). The D products of delta are
+    left out of the operations: D per row against 6D per (q, k) pair."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = (6 if kernel == "dq" else 8) * d * b * h * pairs
     elem = torch.finfo(dtype).bits // 8
     q_bytes, kv_bytes = b * s * h * d * elem, b * s * hkv * d * elem
-    nbytes = (3 * q_bytes + 2 * kv_bytes if kernel == "dq"
+    nbytes = (4 * q_bytes + 2 * kv_bytes if kernel == "dq"
               else 2 * q_bytes + 4 * kv_bytes) + 2 * 4 * b * h * s
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -153,9 +155,10 @@ def attention_bwd_bound_ms(b, s, h, hkv, d, dtype, causal, kernel) -> tuple:
 
 def check_bwd_bounds() -> dict:
     """The backward bounds at bench_400m's shape, held to the figures
-    worked out by hand: 134,283,264 unmasked pairs; dQ 1.031e11 FLOP,
-    >= 0.104 ms, ~169 MB (0.050 ms); dK/dV 1.375e11 FLOP, >= 0.139 ms,
-    ~202 MB (0.060 ms); operations bound both."""
+    worked out by hand: 134,283,264 unmasked pairs; dQ (delta fused)
+    1.031e11 FLOP, >= 0.104 ms, ~202 MB (0.060 ms: q, dO, O, dQ and k, v
+    33.5 MB each, lse and delta 0.5 MB each); dK/dV 1.375e11 FLOP,
+    >= 0.139 ms, ~202 MB (0.060 ms); operations bound both."""
     b, s, h, d = MAIN_SHAPE
     out = {}
     for kernel, flops_want, ms_want in (("dq", 1.031e11, 0.104),
@@ -189,6 +192,12 @@ LSE_ATOL = 1e-4
 #   Allowed: 2e-2 + 2e-2 * |ref|, a few bf16 ulps at the grads' magnitude.
 # - fp32: only the summation order and expf differ: 1e-4 + 1e-4 * |ref|.
 BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+# delta = rowsum(dO * O) from the dQ kernel against flash_attention_delta:
+# both sum the same D fp32 products (exact for bf16 inputs) in another
+# order, and a sum of D terms in fp32 is off by at most about
+# D * 2^-24 * sum|dO * O| whatever its order, so the two may differ by
+# twice that: |err| <= DELTA_TERM_RTOL * D * sum_d |dO * O| per row.
+DELTA_TERM_RTOL = 2 * 2.0 ** -24
 
 
 def compare_kernel(fa, gen, shape, hkv, dtype, causal) -> tuple:
@@ -213,9 +222,12 @@ def compare_kernel(fa, gen, shape, hkv, dtype, causal) -> tuple:
 
 
 def compare_bwd(fa, gen, q, k, v, o, lse, causal, strided_do=False) -> tuple:
-    """The dQ and dK/dV kernels against ``flash_attention_bwd_reference`` on
-    the forward kernel's o and lse and a random dO (with ``strided_do``, a
-    [B, H, S, D] tensor seen as [B, S, H, D], read through its strides)."""
+    """The dQ and dK/dV kernels (through ``flash_attention_bwd``) against
+    ``flash_attention_bwd_reference`` on the forward kernel's o and lse and
+    a random dO (with ``strided_do``, a [B, H, S, D] tensor seen as
+    [B, S, H, D], read through its strides); the delta the dQ kernel fuses
+    against ``flash_attention_delta``; and a second dQ launch, which must
+    give the same dQ bit for bit (each block owns its rows, no atomics)."""
     b, s, h, d = q.shape
     if strided_do:
         do = torch.randn((b, h, s, d), generator=gen,
@@ -239,6 +251,17 @@ def compare_bwd(fa, gen, q, k, v, o, lse, causal, strided_do=False) -> tuple:
         case[f"{name}_ref_max_abs"] = w.float().abs().max().item()
         ok &= bool((err <= atol + rtol * w.float().abs()).all())
     check(ok, f"backward kernels disagree with plain: {case}")
+    dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    want_delta = fa.flash_attention_delta(o, do)
+    terms = (do.float() * o.float()).abs().sum(-1).transpose(1, 2)
+    derr = (delta - want_delta).abs()
+    case["delta_max_abs_err"] = derr.max().item()
+    case["delta_term_rtol"] = DELTA_TERM_RTOL
+    check(delta.shape == want_delta.shape and delta.dtype == torch.float32
+          and bool((derr <= DELTA_TERM_RTOL * d * terms).all()),
+          f"dQ kernel's delta disagrees with flash_attention_delta: {case}")
+    check(torch.equal(dq, got[0]), f"dQ differs between two launches: {case}")
     return case, do
 
 
@@ -306,6 +329,17 @@ def phase_kernel() -> dict:
         # ring stages
         ((2, 40, 8, 64), 2, torch.bfloat16, True),
         ((2, 192, 8, 64), 2, torch.bfloat16, True),
+        # cases the dQ kernel's 128-row q tiles over 64-row kv tiles make
+        # risky: causal at D 128 with n_rep 4 and S mod 128 in 1..64 (the
+        # last q tile's second warpgroup has no live row, the first none on
+        # the diagonal's last kv tile); S 130: as many kv tiles as ring
+        # stages in the first q tile, more in the second, whose second
+        # warpgroup has no live row (S 40 above has fewer tiles than
+        # stages); D 256 (one consumer, two ds.k wgmmas per k step)
+        # non-causal with GQA
+        ((2, 1040, 8, 128), 2, torch.bfloat16, True),
+        ((2, 130, 8, 128), 2, torch.bfloat16, True),
+        ((1, 320, 8, 256), 2, torch.bfloat16, False),
     ]
     with torch.inference_mode():
         main, (q, k, v, o, lse) = compare_kernel(fa, gen, MAIN_SHAPE, h,
@@ -322,12 +356,19 @@ def phase_kernel() -> dict:
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 20)
         plain_ms = cuda_ms(
             lambda: fa.flash_attention_fwd_reference(q, k, v, True), 5)
-        delta = fa.flash_attention_delta(o, do)
-        dq_ms = cuda_ms(lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse,
-                                                       delta, True), 20)
+        # dQ with delta fused; dK/dV on the dQ kernel's delta; both, as
+        # flash_attention_bwd runs them; the plain delta expression that the
+        # fusion took off the path
+        dq_ms = cuda_ms(lambda: fa.flash_bwd_dq_kernel(q, k, v, o, do, lse,
+                                                       True), 20)
+        _, delta = fa.flash_bwd_dq_kernel(q, k, v, o, do, lse, True)
         dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse,
                                                          delta, True), 20)
-        delta_ms = cuda_ms(lambda: fa.flash_attention_delta(o, do), 20)
+        bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        True), 20)
+        delta_plain_ms = cuda_ms(lambda: fa.flash_attention_delta(o, do), 20)
+        dq_plain_ms = cuda_ms(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, o, lse, do, True), 3)
         bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, o, lse, do, True), 3)
         # yardsticks only: the port never calls SDPA
@@ -354,7 +395,8 @@ def phase_kernel() -> dict:
            "bound_by": bound_by, "roofline_share": bound_ms / ms,
            "tflops": flops / ms / 1e9,
            "bwd_cases": bwd_cases, "bwd_dq_ms": dq_ms, "bwd_dkv_ms": dkv_ms,
-           "bwd_delta_ms": delta_ms, "bwd_plain_ms": bwd_plain_ms,
+           "bwd_ms": bwd_ms, "bwd_delta_plain_ms": delta_plain_ms,
+           "bwd_dq_plain_ms": dq_plain_ms, "bwd_plain_ms": bwd_plain_ms,
            "bwd_library_ms": library_bwd_ms}
     for kernel, kms in (("dq", dq_ms), ("dkv", dkv_ms)):
         kbound, kby, kflops = bwd_bounds[kernel]
@@ -737,9 +779,10 @@ def main(argv) -> int:
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:158",
+         "fuses": "delta = rowsum(dO*O), ray_tpu/ops/flash_attention.py:247",
          "launches": per_step["flash_bwd_dq"],
          "max_abs_err": main_bwd["dq_max_abs_err"],
-         "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_plain_ms"],
+         "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_dq_plain_ms"],
          "bound_ms": kernel["bwd_dq_bound_ms"],
          "bound_by": kernel["bwd_dq_bound_by"],
          "library_ms": kernel["bwd_library_ms"]},

@@ -2,35 +2,60 @@
 //
 // Replaces the two Pallas TPU kernels launched by `_bwd`
 // (ray_tpu/ops/flash_attention.py:244): `_bwd_dq_kernel` (:158, pallas_call
-// at :251) and `_bwd_dkv_kernel` (:197, pallas_call at :271). Same functions,
-// not the same blocking. From q, k, v, dO in the [B, S, H, D] layout (read
-// through strides; GQA by kv head h / n_rep), the forward's row logsumexp
-// lse and delta = rowsum(dO * O), both fp32 [B, H, S], they recompute
+// at :251) and `_bwd_dkv_kernel` (:197, pallas_call at :271), and folds in
+// the jnp preprocess between them, delta = rowsum(dO * O) (:247). Same
+// functions, not the same blocking. From q, k, v, dO in the [B, S, H, D]
+// layout (read through strides; GQA by kv head h / n_rep) and the forward's
+// row logsumexp lse (fp32 [B, H, S]) they recompute
 //   p = exp(scale * q k^T - lse)  (causal mask on global positions),
 //   dp = dO v^T,  ds = p (dp - delta) scale,
-// and write dQ = ds k (dq kernel) and dV = p^T dO, dK = ds^T q (dkv kernel)
-// without ever writing an S x S matrix. As in the TPU kernels, p and ds are
-// rounded to bf16 before the products that consume them and every sum is fp32.
+// and write dQ = ds k and delta (dq kernel), then dV = p^T dO, dK = ds^T q
+// (dkv kernel, on the dq kernel's delta), without ever writing an S x S
+// matrix. As in the TPU kernels, p and ds are rounded to bf16 before the
+// products that consume them and every sum is fp32.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s HBM). At the 400M
 // model's shape (B 8, S 2048, H 8, D 128, causal, bf16) there are 1.34e8
 // unmasked (q, k) pairs per head and batch row summed; dQ does 3 products of
 // 2D FLOP per pair (q k^T, dO v^T, ds k: 1.03e11 FLOP, >= 0.104 ms) and dK/dV
 // 4 (q k^T, dO v^T, p^T dO, ds^T q: 1.37e11 FLOP, >= 0.139 ms), against
-// ~0.05-0.06 ms to move their ~170-200 MB. Both are compute-bound; both skip
-// the tiles that the causal mask empties (the @pl.when skips at :169 and
-// :209), which halves the work.
+// ~0.06 ms to move their ~202 MB each. Both are compute-bound; both skip the
+// tiles that the causal mask empties (the @pl.when skips at :169 and :209),
+// which halves the work. Only wgmma reaches the tensor cores' full rate, so
+// both kernels keep every product on it and feed it from a TMA ring
+// (csrc/hopper.cuh), a producer warp beside the consumer warpgroups.
 //
-// dq kernel (mma.sync m16n8k16, csrc/flash_common.cuh): one block per
-// (64-row q tile, batch * head), four warps of 16 q rows; q, dO, lse and
-// delta of its rows stay in the block while it loops over kv tiles up to the
-// diagonal, p and ds kept in registers as the next product's A fragment.
-// Each block owns its dQ rows: no atomics.
+// dq kernel: one block per (q tile, batch * head), the heaviest causal q
+// tiles first (slow grid dim).
+// - Two consumer warpgroups of 64 q rows (a 128-row q tile; one at D 256)
+//   and a producer warpgroup whose one thread issues every copy. q and dO of
+//   the tile are copied once by TMA and stay; k and v of kv head h / n_rep
+//   stream through a ring of 2 stages of 64 kv rows (full and empty
+//   mbarriers) up to the causal diagonal: 2 stages measured 2-3% faster
+//   than 3 or 4 at the model's shape (ops/sweep_dq.py). 64-row kv tiles keep a consumer
+//   at dQ, s and dp = 64 + 32 + 32 fp32 registers at D 128: 128-row tiles
+//   (192) are what spilled two consumer warpgroups in the dK/dV kernel.
+// - s = q k^T and dp = dO v^T: wgmma, both operands K-major from shared
+//   memory, in two commit groups, so that p = exp2(s scale log2 e - lse
+//   log2 e) is made while dO v^T still runs (masks only on diagonal and
+//   ragged tiles). ds = p (dp - delta) scale is made in registers, rounded
+//   to bf16 and packed as the register A operand of dQ += ds k, which reads
+//   the same k tile MN-major (transpose bit): nothing is gathered by hand.
+//   dQ stays in fp32 registers for the whole loop and is stored once; each
+//   block owns its rows, so there are no atomics and the result is
+//   deterministic.
+// - delta in the prologue: while the producer's first copies are in flight,
+//   each consumer reads its rows of dO and O with 16-byte loads, sums
+//   dO * O in fp32 (four lanes a row, then two shuffles), keeps delta in
+//   registers in the accumulator's row layout and writes it, fp32
+//   [B, H, S], for the dkv kernel.
+// - With 128 q rows and 64-row kv tiles a warpgroup can have no live row
+//   (S mod 128 in 1..64) or, on the diagonal's last kv tile, no live
+//   column. It skips the products, but still waits for every stage to fill
+//   before it releases it, so the two warpgroups release each stage of the
+//   ring in the same phase.
 //
-// dkv kernel (wgmma, TMA, warp specialisation; csrc/hopper.cuh): one block
-// per (kv tile, batch * kv head). Only wgmma reaches the tensor cores' full
-// rate, so the design keeps all four products on it and feeds it from a TMA
-// ring:
+// dkv kernel: one block per (kv tile, batch * kv head).
 // - Consumer warpgroups of 64 kv rows each and a producer warpgroup. A
 //   consumer keeps dK and dV in fp32 registers for the whole loop, beside
 //   s^T and dp^T: 192 registers at D 128. With two consumers (384 threads,
@@ -58,9 +83,9 @@
 //   (the first, under the causal mask) are scheduled first.
 //
 // Ragged S: TMA zero-fills q, dO, k and v rows past S, their lse/delta read
-// as 0 and p is forced to 0 there, so nothing from them reaches dK/dV; rows
-// past S are never stored. The fp32 kernels (used to check the algorithm on
-// the card) are plain FMA on shared tiles, with the same loops and masks.
+// as 0 and p is forced to 0 there; rows past S are never stored. The fp32
+// kernels (used to check the algorithm on the card) are plain FMA on shared
+// tiles, with the same loops and masks and the same delta prologue.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -69,149 +94,289 @@ namespace {
 
 using namespace flash;
 
-constexpr int kBlockM = 64;  // dq: q rows per block
-
 struct Params {
   const void* q;
   const void* k;
   const void* v;
+  const void* o;     // the forward's output (dq kernel only)
   const void* dout;
-  const float* lse;    // [B, H, S]
-  const float* delta;  // [B, H, S]
-  void* dq;            // contiguous [B, S, H, D]
-  void* dk;            // contiguous [B, S, Hkv, D]
-  void* dv;            // contiguous [B, S, Hkv, D]
+  const float* lse;  // [B, H, S]
+  float* delta;      // [B, H, S]: written by the dq kernel, read by the dkv kernel
+  void* dq;          // contiguous [B, S, H, D]
+  void* dk;          // contiguous [B, S, Hkv, D]
+  void* dv;          // contiguous [B, S, Hkv, D]
   int B, S, H, Hkv, D;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;  // of dO
+  long long do_sb, do_ss, do_sh;
+  long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
 };
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 // ---------------------------------------------------------------------------
-// bf16 kernels. DP: head dim padded to the template (D <= DP, D % 16 == 0).
-// Lane (g = lane / 4, t = lane % 4) of warp w holds rows 16w + g and
-// 16w + g + 8 of the block's M rows, columns 2t, 2t + 1 of each 8-wide tile.
+// bf16 dQ kernel (wgmma, TMA, warp specialisation), delta in its prologue
 // ---------------------------------------------------------------------------
 
-template <int DP, int BN>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(Params p) {
-  constexpr int kPitch = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + kBlockM * kPitch;  // dO
-  __nv_bfloat16* sK = sO + kBlockM * kPitch;
-  __nv_bfloat16* sV = sK + BN * kPitch;
+struct DqParams {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const void* o;     // [B, S, H, D] through strides (delta's loads)
+  const void* dout;  // the same for dO
+  const float* lse;  // [B, H, S]
+  float* delta;      // [B, H, S], written
+  void* dq;          // contiguous [B, S, H, D]
+  int S, H, D, n_rep, n_q_tiles;
+  long long o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh;
+  float scale, scale_log2;  // scale, scale * log2(e)
+  int causal;
+};
 
-  const int bh = blockIdx.y;
+// DP: head dim padded to the template (D <= DP); BN: kv rows per ring
+// stage; NS: ring stages; NWG: consumer warpgroups, 64 q rows each.
+template <int DP, int BN, int NS, int NWG>
+struct DqSmem {
+  static constexpr int kRowsM = 64 * NWG;     // q rows per block
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kQ = kRowsM * DP * 2;  // bytes of the q (or dO) tile
+  static constexpr int kKV = BN * DP * 2;     // bytes of one k or v tile
+  static constexpr int kBars = 1 + 2 * NS;    // q and dO; full, empty per stage
+  static constexpr int kBytes = 1024 + 2 * kQ + 2 * NS * kKV + 8 * kBars;  // 1024: alignment slack
+};
+
+// The sum of a[i] * b[i] over 8 bf16 pairs (one 16-byte load each), added
+// to acc in fp32; the products of two bf16 values are exact in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]);
+    const float2 fy = __bfloat1622float2(y[i]);
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
+  }
+  return acc;
+}
+
+template <int DP, int BN, int NS, int NWG>
+__global__ void __launch_bounds__(DqSmem<DP, BN, NS, NWG>::kThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ DqParams p) {
+  using L = DqSmem<DP, BN, NS, NWG>;
+  constexpr int kRowsM = L::kRowsM;
+  constexpr int ON = DP < 128 ? DP : 128;  // N of one ds k wgmma
+  constexpr int NO = DP / ON;              // ds k wgmmas per k step
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1024-byte alignment
+  const uint32_t sO = sQ + L::kQ;              // dO
+  const uint32_t sKV = sO + L::kQ;             // stage s: k at sKV + 2s kKV, v after it
+  const uint32_t bars = sKV + 2 * NS * L::kKV;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + NS + s); };
+  auto sK = [&](int s) { return sKV + 2u * s * L::kKV; };
+  auto sV = [&](int s) { return sKV + (2u * s + 1u) * L::kKV; };
+
+  const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * kBlockM;
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dO =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  load_tile<DP>(sQ, Q, p.q_ss, q0, kBlockM, p.S, p.D);
-  load_tile<DP>(sO, dO, p.o_ss, q0, kBlockM, p.S, p.D);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r_lo = warp * 16 + g;
-  const int qa = q0 + r_lo;  // global positions of the lane's two rows
-  const int qb = qa + 8;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.S;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.S;
-  const float lse_a = qa < p.S ? lse[qa] : 0.f;
-  const float lse_b = qb < p.S ? lse[qb] : 0.f;
-  const float dl_a = qa < p.S ? delta[qa] : 0.f;
-  const float dl_b = qb < p.S ? delta[qb] : 0.f;
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int kv_end = p.causal ? min(q0 + kBlockM, p.S) : p.S;
+  const int hk = h / p.n_rep;
+  // Under the causal mask the heaviest q tiles (the last) come first.
+  const int qt = p.causal ? p.n_q_tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y;
+  const int q0 = qt * kRowsM;
+  const int kv_end = p.causal ? min(q0 + kRowsM, p.S) : p.S;
   const int n_tiles = (kv_end + BN - 1) / BN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile is consumed (and sQ, sO are written)
-    load_tile<DP>(sK, K, p.k_ss, k0, BN, p.S, p.D);
-    load_tile<DP>(sV, V, p.v_ss, k0, BN, p.S, p.D);
-    __syncthreads();
+  // Warpgroup index, broadcast from lane 0 so the compiler sees it is uniform
+  // across each warp: the role branches below then do not diverge inside a
+  // warpgroup, which setmaxnreg and wgmma need.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
 
-    // s = q k^T and dp = dO v^T for this warp's 16 rows and the tile's BN
-    // columns.
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 4 * NWG);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ, kPitch, r_lo, kk * 16, t);
-      load_a(ao, sO, kPitch, r_lo, kk * 16, t);
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        const __nv_bfloat16* kp = sK + (n * 8 + g) * kPitch + kk * 16 + t * 2;
-        mma_bf16(s[n], aq, lds32(kp), lds32(kp + 8));
-        const __nv_bfloat16* vp = sV + (n * 8 + g) * kPitch + kk * 16 + t * 2;
-        mma_bf16(dp[n], ao, lds32(vp), lds32(vp + 8));
-      }
-    }
-
-    // p = exp(scale s - lse), 0 where masked; ds = p (dp - delta) scale,
-    // kept in s.
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t * 2 + (e & 1);
-        const int row = e < 2 ? qa : qb;
-        const bool live = col < p.S && row < p.S && !(p.causal && col > row);
-        const float pr = live ? expf(s[n][e] * p.scale - (e < 2 ? lse_a : lse_b)) : 0.f;
-        s[n][e] = pr * (dp[n][e] - (e < 2 ? dl_a : dl_b)) * p.scale;
-      }
-    }
-
-    // dQ += bf16(ds) k: k is the B operand [kv, d].
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      const __nv_bfloat16* kp = sK + (kk * 16 + t * 2) * kPitch + g;
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const __nv_bfloat16* kq = kp + n * 8;
-        mma_bf16(acc[n], a, pack_halves(kq[0], kq[kPitch]),
-                 pack_halves(kq[8 * kPitch], kq[9 * kPitch]));
-      }
-    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  const long long row = static_cast<long long>(p.H) * p.D;
-  __nv_bfloat16* dQ = static_cast<__nv_bfloat16*>(p.dq) +
-                      static_cast<long long>(b) * p.S * row + h * p.D;
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int col = n * 8 + t * 2;
-    if (col < p.D) {
-      if (qa < p.S) {
-        *reinterpret_cast<uint32_t*>(dQ + qa * row + col) = pack_floats(acc[n][0], acc[n][1]);
+  if (wg == NWG) {
+    // Producer: one thread keeps the ring full.
+    if constexpr (NWG > 1) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * 128) {
+      hopper::mbar_arrive_expect_tx(q_full, 2 * L::kQ);
+      hopper::tma_tile<DP>(sQ, &p.tm_q, q_full, kRowsM, h, q0, b);
+      hopper::tma_tile<DP>(sO, &p.tm_do, q_full, kRowsM, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        hopper::mbar_wait(empty(s), ((j / NS) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full(s), 2 * L::kKV);
+        hopper::tma_tile<DP>(sK(s), &p.tm_k, full(s), BN, hk, j * BN, b);
+        hopper::tma_tile<DP>(sV(s), &p.tm_v, full(s), BN, hk, j * BN, b);
       }
-      if (qb < p.S) {
-        *reinterpret_cast<uint32_t*>(dQ + qb * row + col) = pack_floats(acc[n][2], acc[n][3]);
+    }
+  } else {
+    // Consumers: warpgroup wg owns q rows [row0, row0 + 64).
+    if constexpr (NWG > 1) hopper::setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = q0 + wg * 64;
+    const int qa = row0 + warp * 16 + g;  // global positions of the thread's two rows
+    const int qb = qa + 8;
+    const float c = p.scale_log2;
+
+    // delta = rowsum(dO * O) of the two rows: lane t sums the 16-byte
+    // chunks t, t + 4, ... of each row, then the row's four lanes add up.
+    float dl_a = 0.f, dl_b = 0.f;
+    {
+      const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+      const __nv_bfloat16* O = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+      for (int i = 0; i < DP / 32; ++i) {
+        const int col = (t + 4 * i) * 8;
+        if (col < p.D) {
+          if (qa < p.S) {
+            dl_a = dot8(*reinterpret_cast<const uint4*>(dO + qa * p.do_ss + col),
+                        *reinterpret_cast<const uint4*>(O + qa * p.o_ss + col), dl_a);
+          }
+          if (qb < p.S) {
+            dl_b = dot8(*reinterpret_cast<const uint4*>(dO + qb * p.do_ss + col),
+                        *reinterpret_cast<const uint4*>(O + qb * p.o_ss + col), dl_b);
+          }
+        }
+      }
+      dl_a += __shfl_xor_sync(0xffffffffu, dl_a, 1);
+      dl_a += __shfl_xor_sync(0xffffffffu, dl_a, 2);
+      dl_b += __shfl_xor_sync(0xffffffffu, dl_b, 1);
+      dl_b += __shfl_xor_sync(0xffffffffu, dl_b, 2);
+      float* delta = p.delta + static_cast<long long>(bh) * p.S;
+      if (t == 0) {
+        if (qa < p.S) delta[qa] = dl_a;
+        if (qb < p.S) delta[qb] = dl_b;
+      }
+    }
+    // lse * log2(e), 0 past S.
+    const float* lse = p.lse + static_cast<long long>(bh) * p.S;
+    const float ls_a = qa < p.S ? lse[qa] * kLog2e : 0.f;
+    const float ls_b = qb < p.S ? lse[qb] * kLog2e : 0.f;
+
+    float dq[NO][ON / 2];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+#pragma unroll
+      for (int x = 0; x < ON / 2; ++x) dq[i][x] = 0.f;
+    }
+
+    const uint64_t q_desc = hopper::desc_k_major(sQ + wg * 64 * 128);
+    const uint64_t o_desc = hopper::desc_k_major(sO + wg * 64 * 128);
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % NS;
+      const int k0 = j * BN;
+      // Every consumer waits for the stage to fill before it releases it,
+      // even one that skips the tile: a warpgroup that released stages it
+      // never saw filled could complete a phase of empty(s) alone, a lap
+      // ahead, while the other still reads the stage.
+      hopper::mbar_wait(full(s), (j / NS) & 1);
+      // No live row (all past S), or (causal) every column past every row.
+      if (row0 < p.S && !(p.causal && k0 > row0 + 63)) {
+        // s = q k^T and dp = dO v^T: the warpgroup's 64 q rows by the tile's
+        // BN kv columns.
+        float sc[BN / 2], dp[BN / 2];
+        const uint64_t k_desc = hopper::desc_k_major(sK(s));
+        const uint64_t v_desc = hopper::desc_k_major(sV(s));
+        hopper::fence_acc(sc);
+        hopper::fence_acc(dp);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          // k step kk: 16 columns of column block kk / 4
+          const uint32_t col = (kk % 4) * 32u;
+          hopper::wgmma_ss<BN>(sc, hopper::desc_at(q_desc, (kk / 4) * kRowsM * 128 + col),
+                               hopper::desc_at(k_desc, (kk / 4) * BN * 128 + col), kk > 0);
+        }
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32u;
+          hopper::wgmma_ss<BN>(dp, hopper::desc_at(o_desc, (kk / 4) * kRowsM * 128 + col),
+                               hopper::desc_at(v_desc, (kk / 4) * BN * 128 + col), kk > 0);
+        }
+        hopper::wgmma_commit();
+        // p = exp(scale s - lse) (0 where masked, at columns past S and at
+        // rows past S), made while dO v^T runs; masks only where the
+        // diagonal or the end of S crosses the tile.
+        hopper::wgmma_wait<1>();
+        hopper::fence_acc(sc);
+        const bool masked = (p.causal && k0 + BN - 1 > row0) || k0 + BN > p.S || row0 + 64 > p.S;
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) {
+          float pr = exp2f(fmaf(sc[x], c, -((x & 2) ? ls_b : ls_a)));
+          if (masked) {
+            const int col = k0 + (x / 4) * 8 + 2 * t + (x & 1);
+            const int row = (x & 2) ? qb : qa;
+            if (col >= p.S || row >= p.S || (p.causal && col > row)) pr = 0.f;
+          }
+          sc[x] = pr;
+        }
+        // ds = p (dp - delta) scale, kept in sc.
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc(dp);
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) sc[x] = sc[x] * (dp[x] - ((x & 2) ? dl_b : dl_a)) * p.scale;
+        // bf16 ds as the A fragments of the BN / 16 k steps of ds k.
+        uint32_t as[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) as[kk][r] = pack_floats(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        }
+        const uint64_t kn_desc = hopper::desc_mn_major(sK(s), BN * 128);
+#pragma unroll
+        for (int i = 0; i < NO; ++i) hopper::fence_acc(dq[i]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            // kv rows 16 kk.., output columns i ON.. (column block i ON / 64)
+            hopper::wgmma_rs<ON>(dq[i], as[kk],
+                                 hopper::desc_at(kn_desc, kk * 16 * 128 + (i * ON / 64) * BN * 128),
+                                 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < NO; ++i) hopper::fence_acc(dq[i]);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
+    }
+
+    const long long row = static_cast<long long>(p.H) * p.D;
+    __nv_bfloat16* dQ = static_cast<__nv_bfloat16*>(p.dq) + static_cast<long long>(b) * p.S * row + h * p.D;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+#pragma unroll
+      for (int n = 0; n < ON / 8; ++n) {
+        const int col = i * ON + n * 8 + 2 * t;
+        if (col < p.D) {
+          if (qa < p.S) {
+            *reinterpret_cast<uint32_t*>(dQ + qa * row + col) = pack_floats(dq[i][4 * n], dq[i][4 * n + 1]);
+          }
+          if (qb < p.S) {
+            *reinterpret_cast<uint32_t*>(dQ + qb * row + col) =
+                pack_floats(dq[i][4 * n + 2], dq[i][4 * n + 3]);
+          }
+        }
       }
     }
   }
@@ -312,7 +477,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
         float* st = stats + s * 2 * kRowsQ;
         for (int c = lane; c < kRowsQ; c += 32) {
           const int qi = qt0 + c;
-          st[c] = qi < p.S ? p.lse[row + qi] * 1.4426950408889634f : 0.f;
+          st[c] = qi < p.S ? p.lse[row + qi] * kLog2e : 0.f;
           st[kRowsQ + c] = qi < p.S ? p.delta[row + qi] : 0.f;
         }
         if (lane == 0) {
@@ -482,21 +647,30 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Params p) {
   const int hk = h / (p.H / p.Hkv);
   const int q0 = blockIdx.x * BM;
   const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* dO = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* dO = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* K = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* V = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* O = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int tid = threadIdx.x;
 
   for (int i = tid; i < BM * D; i += kThreads) {
     const int r = i / D, c = i % D, s = q0 + r;
     sQ[i] = s < p.S ? Q[s * p.q_ss + c] : 0.f;
-    sO[i] = s < p.S ? dO[s * p.o_ss + c] : 0.f;
+    sO[i] = s < p.S ? dO[s * p.do_ss + c] : 0.f;
     sA[i] = 0.f;
   }
+  __syncthreads();
+  // delta = rowsum(dO * O), written for the dkv kernel.
   for (int r = tid; r < BM; r += kThreads) {
     const int s = q0 + r;
-    sL[r] = s < p.S ? p.lse[static_cast<long long>(bh) * p.S + s] : 0.f;
-    sD[r] = s < p.S ? p.delta[static_cast<long long>(bh) * p.S + s] : 0.f;
+    const long long at = static_cast<long long>(bh) * p.S + s;
+    float dl = 0.f;
+    if (s < p.S) {
+      for (int d = 0; d < D; ++d) dl = fmaf(sO[r * D + d], O[s * p.o_ss + d], dl);
+      p.delta[at] = dl;
+    }
+    sL[r] = s < p.S ? p.lse[at] : 0.f;
+    sD[r] = dl;
   }
 
   const int kv_end = p.causal ? min(q0 + BM, p.S) : p.S;
@@ -584,7 +758,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Params p) {
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
     const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* dO = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    const float* dO = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
     const long long stat = (static_cast<long long>(b) * p.H + h) * p.S;
     for (int it = i0; it < n_q; ++it) {
       const int qt0 = it * BM;
@@ -592,7 +766,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Params p) {
       for (int i = tid; i < BM * D; i += kThreads) {
         const int r = i / D, c = i % D, s = qt0 + r;
         sQ[r * (D + 1) + c] = s < p.S ? Q[s * p.q_ss + c] : 0.f;
-        sO[r * (D + 1) + c] = s < p.S ? dO[s * p.o_ss + c] : 0.f;
+        sO[r * (D + 1) + c] = s < p.S ? dO[s * p.do_ss + c] : 0.f;
       }
       for (int r = tid; r < BM; r += kThreads) {
         const int s = qt0 + r;
@@ -653,11 +827,54 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Params p) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <int DP, int BN>
-cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
-  const int smem = (2 * kBlockM + 2 * BN) * (DP + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  const dim3 grid((p.S + kBlockM - 1) / kBlockM, p.B * p.H);
-  return launch(flash_bwd_dq_bf16_kernel<DP, BN>, grid, kThreads, smem, p, stream);
+// The one table from head dim to the bf16 dQ kernel's configuration:
+// returns f(layout) for the layout that flash_bwd_dq launches at D.
+template <typename F>
+int with_dq_config(int D, F f) {
+  if (D <= 64) return f(DqSmem<64, 64, 2, 2>{});
+  if (D <= 128) return f(DqSmem<128, 64, 2, 2>{});
+  return f(DqSmem<256, 64, 2, 1>{});
+}
+
+template <int DP, int BN, int NS, int NWG>
+int launch_dq_bf16(DqSmem<DP, BN, NS, NWG>, const Params& p, cudaStream_t stream) {
+  using L = DqSmem<DP, BN, NS, NWG>;
+  DqParams dp;
+  int rc = hopper::encode_bshd(&dp.tm_q, p.q, p.B, p.S, p.H, p.D, p.q_sb, p.q_ss, p.q_sh,
+                               L::kRowsM);
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&dp.tm_do, p.dout, p.B, p.S, p.H, p.D, p.do_sb, p.do_ss, p.do_sh,
+                             L::kRowsM);
+  }
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&dp.tm_k, p.k, p.B, p.S, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, BN);
+  }
+  if (rc == 0) {
+    rc = hopper::encode_bshd(&dp.tm_v, p.v, p.B, p.S, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, BN);
+  }
+  if (rc != 0) return rc;
+  dp.o = p.o;
+  dp.dout = p.dout;
+  dp.lse = p.lse;
+  dp.delta = p.delta;
+  dp.dq = p.dq;
+  dp.S = p.S;
+  dp.H = p.H;
+  dp.D = p.D;
+  dp.n_rep = p.H / p.Hkv;
+  dp.n_q_tiles = (p.S + L::kRowsM - 1) / L::kRowsM;
+  dp.o_sb = p.o_sb;
+  dp.o_ss = p.o_ss;
+  dp.o_sh = p.o_sh;
+  dp.do_sb = p.do_sb;
+  dp.do_ss = p.do_ss;
+  dp.do_sh = p.do_sh;
+  dp.scale = p.scale;
+  dp.scale_log2 = p.scale * kLog2e;
+  dp.causal = p.causal;
+  const dim3 grid(p.B * p.H, dp.n_q_tiles);
+  return static_cast<int>(
+      launch(flash_bwd_dq_bf16_kernel<DP, BN, NS, NWG>, grid, L::kThreads, L::kBytes, dp, stream));
 }
 
 // The one table from head dim to the bf16 dK/dV kernel's configuration:
@@ -675,7 +892,7 @@ int launch_dkv_bf16(DkvSmem<DP, DC, NWG, NS>, const Params& p, cudaStream_t stre
   DkvParams dp;
   int rc = hopper::encode_bshd(&dp.tm_q, p.q, p.B, p.S, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, kRowsQ);
   if (rc == 0) {
-    rc = hopper::encode_bshd(&dp.tm_do, p.dout, p.B, p.S, p.H, p.D, p.o_sb, p.o_ss, p.o_sh,
+    rc = hopper::encode_bshd(&dp.tm_do, p.dout, p.B, p.S, p.H, p.D, p.do_sb, p.do_ss, p.do_sh,
                              kRowsQ);
   }
   if (rc == 0) {
@@ -697,7 +914,7 @@ int launch_dkv_bf16(DkvSmem<DP, DC, NWG, NS>, const Params& p, cudaStream_t stre
   dp.D = p.D;
   dp.n_rep = p.H / p.Hkv;
   dp.scale = p.scale;
-  dp.scale_log2 = p.scale * 1.4426950408889634f;
+  dp.scale_log2 = p.scale * kLog2e;
   dp.causal = p.causal;
   // kv tiles in the slow grid dim: every (b, kv head) of tile 0, the tile
   // with the most q tiles under the causal mask, is scheduled first.
@@ -722,17 +939,19 @@ cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
                 p, stream);
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-                   int S, int H, int Hkv, int D, const long long* st, float scale,
-                   int causal) {
+// st: the strides (in elements; batch, sequence, head) of q, k, v, dout
+// and, when o is given, o.
+Params make_params(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S,
+                   int H, int Hkv, int D, const long long* st, float scale, int causal) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
+  p.o = o;
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
@@ -750,9 +969,12 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   p.v_sb = st[6];
   p.v_ss = st[7];
   p.v_sh = st[8];
-  p.o_sb = st[9];
-  p.o_ss = st[10];
-  p.o_sh = st[11];
+  p.do_sb = st[9];
+  p.do_ss = st[10];
+  p.do_sh = st[11];
+  p.o_sb = o ? st[12] : 0;
+  p.o_ss = o ? st[13] : 0;
+  p.o_sh = o ? st[14] : 0;
   p.scale = scale;
   p.causal = causal;
   return p;
@@ -760,38 +982,49 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. q, k, v, dout are read through their strides
-// (in elements, batch / sequence / head of q, k, v, dout in that order; the
-// last dim is contiguous); lse and delta are contiguous fp32 [B, H, S]; dq,
-// dk, dv are written contiguous, in the inputs' dtype. The caller checks
-// shapes, dtypes and alignment. Each returns the CUDA error of its launch
-// (0 on success).
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq, int dtype, int B,
-                            int S, int H, int Hkv, int D, const long long* strides,
+// dtype: 0 float32, 1 bfloat16. q, k, v, o, dout are read through their
+// strides (in elements; the last dim is contiguous); lse and delta are
+// contiguous fp32 [B, H, S]; dq, dk, dv are written contiguous, in the
+// inputs' dtype. The caller checks shapes and dtypes, and (for the tensor
+// maps of the bf16 path) a 16-byte aligned base and strides that are
+// positive multiples of 16 bytes. Each returns the CUDA error of its launch
+// (0 on success), or hopper::kErrNoEncodeEntryPoint / kErrEncode + CUresult
+// when a tensor map cannot be made.
+
+// dQ and delta = rowsum(dO * O), which it writes for flash_bwd_dkv.
+// strides: 15, batch / sequence / head of q, k, v, dout and o in that order.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* lse, void* delta, void* dq, int dtype,
+                            int B, int S, int H, int Hkv, int D, const long long* strides,
                             float scale, int causal, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, S, H, Hkv, D,
-                               strides, scale, causal);
+  const Params p = make_params(q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, B, S, H, Hkv,
+                               D, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (D <= 64) return static_cast<int>(launch_dq_bf16<64, 64>(p, st));
-    if (D <= 128) return static_cast<int>(launch_dq_bf16<128, 64>(p, st));
-    return static_cast<int>(launch_dq_bf16<256, 32>(p, st));
+    return with_dq_config(D, [&](auto layout) { return launch_dq_bf16(layout, p, st); });
   }
   return static_cast<int>(launch_dq_f32(p, st));
 }
 
+// dK and dV from delta as flash_bwd_dq wrote it. strides: 12, batch /
+// sequence / head of q, k, v and dout in that order.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int dtype,
                              int B, int S, int H, int Hkv, int D, const long long* strides,
                              float scale, int causal, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, S, H, Hkv, D,
-                               strides, scale, causal);
+  const Params p = make_params(q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk,
+                               dv, B, S, H, Hkv, D, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return with_dkv_config(D, [&](auto layout) { return launch_dkv_bf16(layout, p, st); });
   }
   return static_cast<int>(launch_dkv_f32(p, st));
+}
+
+// Dynamic shared memory (bytes) of the bf16 kernel that flash_bwd_dq
+// launches for head dim D.
+extern "C" int flash_bwd_dq_smem_bytes(int D) {
+  return with_dq_config(D, [](auto layout) { return decltype(layout)::kBytes; });
 }
 
 // Dynamic shared memory (bytes) of the bf16 kernel that flash_bwd_dkv

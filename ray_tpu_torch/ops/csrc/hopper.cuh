@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels that
-// run on wgmma and TMA (flash_fwd.cu, the dK/dV kernel of flash_bwd.cu):
+// run on wgmma and TMA (flash_fwd.cu, the dQ and dK/dV kernels of
+// flash_bwd.cu):
 // mbarriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma
 // shared-memory descriptors and instructions, register rebalancing, and the
 // host-side tensor maps over [B, S, H, D] operands. All inline PTX; no
@@ -11,7 +12,7 @@
 // c ^ (r % 8)), so 8 rows make one 1024-byte swizzle atom. One TMA box (64
 // columns by `rows` rows) fills one column block. wgmma reads such a block
 // as K-major (the 64 columns are the reduction dim: q k^T, k q^T) or as
-// MN-major (the 64 columns are the N dim: p v, p^T dO, ds^T q).
+// MN-major (the 64 columns are the N dim: p v, ds k, p^T dO, ds^T q).
 #pragma once
 
 #include <cuda.h>

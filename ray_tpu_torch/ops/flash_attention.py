@@ -10,21 +10,22 @@ replace the three Pallas TPU kernels:
   the row logsumexp ``lse`` the backward needs;
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dq_kernel`` (:158) with its dQ kernel
   and ``_bwd_dkv_kernel`` (:197) with its dK/dV kernel, which recompute p
-  from ``lse`` blockwise.
+  from ``lse`` blockwise. The dQ kernel also computes delta = rowsum(dO * O)
+  (the reference's jnp preprocess, :247) in its prologue and writes it for
+  the dK/dV kernel, which runs after it.
 
-In bf16 the forward and dK/dV kernels run on Hopper's wgmma, fed by TMA
-copies through tensor maps that the C entry points build per call over the
-operands as they lie (``csrc/hopper.cuh``); the dQ kernel and the fp32
-kernels read through strides with plain loads.
+In bf16 all three kernels run on Hopper's wgmma, fed by TMA copies through
+tensor maps that the C entry points build per call over the operands as
+they lie (``csrc/hopper.cuh``); the fp32 kernels read through strides with
+plain loads.
 
 ``flash_attention`` is differentiable: with gradients enabled and an input
 that requires grad it goes through ``_FlashAttention``, the counterpart of
 ``custom_vjp``, which saves (q, k, v, o, lse) and runs both backward kernels.
-delta = rowsum(dO * O) is one torch expression before them, as in the
-reference (:247).
 
 Device rule: tensors on the CPU go to the plain PyTorch versions
-(``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``), which
+(``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``; per
+kernel also ``flash_bwd_dq_reference`` and ``flash_attention_delta``), which
 the CPU tests hold against JAX. CUDA tensors launch the kernels, or raise;
 nothing falls back. ``launches``, ``launches_bwd_dq`` and
 ``launches_bwd_dkv`` count kernel launches, so a run can show its path went
@@ -69,26 +70,27 @@ def flash_attention_fwd_reference(
     return o.to(q.dtype), lse
 
 
-def flash_attention_bwd_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of both backward kernels (``_bwd``, :244): dense
-    fp32 scores with the NEG_INF mask, delta = rowsum(dO * O),
-    p = exp(s - lse), ds = p (dp - delta) scale; p and ds are rounded to the
-    input dtype before the products that consume them, as the TPU kernels
-    do. dK and dV sum over the n_rep q heads of each kv head (GQA). Returns
-    (dq, dk, dv), each in its input's dtype."""
-    s, h, d = q.shape[1], q.shape[2], q.shape[3]
-    hkv = k.shape[2]
-    n_rep = h // hkv
+def flash_attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, laid out [B, H, S] as lse: the plain
+    version of what the dQ kernel computes in its prologue."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_reference_terms(q, k, v, o, lse, do, causal):
+    """What both plain backward versions share (``_bwd``, :244): dense fp32
+    scores with the NEG_INF mask, delta = rowsum(dO * O), p = exp(s - lse),
+    ds = p (dp - delta) scale, with ds rounded to the input dtype as the TPU
+    kernels round it before its products. Returns fp32 (q, k, v, dO with kv
+    heads repeated; delta [B, H, S]; p, ds [B, H, S, S])."""
+    s, d = q.shape[1], q.shape[3]
+    n_rep = q.shape[2] // k.shape[2]
     dt = q.dtype
     scale = d ** -0.5
     qf = q.float()
     kf = repeat_kv(k, n_rep).float()
     vf = repeat_kv(v, n_rep).float()
     dof = do.to(dt).float()
-    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # [B, H, S]
+    delta = flash_attention_delta(o, dof)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if causal:
         pos = torch.arange(s, device=q.device)
@@ -96,13 +98,39 @@ def flash_attention_bwd_reference(
     p = torch.exp(scores - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    return qf, kf, dof, delta, p, ds
+
+
+def flash_bwd_dq_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dQ kernel: (dq in q's dtype [B, S, H, D],
+    delta fp32 [B, H, S]), rounded as ``flash_attention_bwd_reference``
+    rounds them."""
+    _qf, kf, _dof, delta, _p, ds = _bwd_reference_terms(q, k, v, o, lse, do,
+                                                        causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype), delta
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of both backward kernels (``_bwd``, :244), from
+    ``_bwd_reference_terms``; p is rounded to the input dtype before p^T dO,
+    as the TPU kernel does. dK and dV sum over the n_rep q heads of each kv
+    head (GQA). Returns (dq, dk, dv), each in its input's dtype."""
+    qf, kf, dof, _delta, p, ds = _bwd_reference_terms(q, k, v, o, lse, do,
+                                                      causal)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
-    b = q.shape[0]
-    dk = dk.reshape(b, s, hkv, n_rep, d).sum(3)
-    dv = dv.reshape(b, s, hkv, n_rep, d).sum(3)
-    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
+    dk = dk.reshape(b, s, hkv, h // hkv, d).sum(3)
+    dv = dv.reshape(b, s, hkv, h // hkv, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v) -> None:
@@ -161,15 +189,17 @@ _ARGTYPES = {
     # q, k, v, o, lse, dtype, B, S, H, Hkv, D, 12 strides, scale, causal, stream
     ("flash_fwd", "flash_fwd"):
         [_P] * 5 + [_I] * 6 + [_I64] * 12 + [ctypes.c_float, _I, _P],
-    # q, k, v, dout, lse, delta, dq, dtype, B, S, H, Hkv, D, strides*, scale,
-    # causal, stream
+    # q, k, v, o, dout, lse, delta (written), dq, dtype, B, S, H, Hkv, D,
+    # strides* (15), scale, causal, stream
     ("flash_bwd", "flash_bwd_dq"):
-        [_P] * 7 + [_I] * 6 + [_P, ctypes.c_float, _I, _P],
-    # the same with dk, dv in place of dq
+        [_P] * 8 + [_I] * 6 + [_P, ctypes.c_float, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, dtype, B, S, H, Hkv, D, strides*
+    # (12), scale, causal, stream
     ("flash_bwd", "flash_bwd_dkv"):
         [_P] * 8 + [_I] * 6 + [_P, ctypes.c_float, _I, _P],
     # D: dynamic shared memory of the bf16 kernel for that head dim
     ("flash_fwd", "flash_fwd_smem_bytes"): [_I],
+    ("flash_bwd", "flash_bwd_dq_smem_bytes"): [_I],
     ("flash_bwd", "flash_bwd_dkv_smem_bytes"): [_I],
 }
 
@@ -187,10 +217,11 @@ def _kernel(lib: str, name: str):
 
 
 def kernel_smem_bytes(d: int) -> dict:
-    """Dynamic shared memory (bytes) of the bf16 forward and dK/dV kernels
-    at head dim ``d``, as their entry points launch them (builds the
+    """Dynamic shared memory (bytes) of the bf16 forward, dQ and dK/dV
+    kernels at head dim ``d``, as their entry points launch them (builds the
     libraries if needed)."""
     return {"flash_fwd": _kernel("flash_fwd", "flash_fwd_smem_bytes")(d),
+            "flash_bwd_dq": _kernel("flash_bwd", "flash_bwd_dq_smem_bytes")(d),
             "flash_bwd_dkv": _kernel("flash_bwd",
                                      "flash_bwd_dkv_smem_bytes")(d)}
 
@@ -242,27 +273,22 @@ def _launch(q, k, v, causal: bool):
     return o, lse
 
 
-def flash_attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO * O) in fp32, laid out [B, H, S] as lse."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-
-
-def _bwd_args(q, k, v, do, lse, delta, causal: bool):
-    """The checked operands and the ctypes arguments the two backward
-    kernels share: (q, k, v, do, lse, delta pointers), (dtype, B, S, H, Hkv,
-    D), (strides, scale, causal), and the strides' buffer, which must live
-    until the launch."""
-    _check_launch(q, k, v, do, lse, delta)
+def _bwd_args(q, k, v, do, causal: bool, o=None):
+    """The operands of a backward kernel as it reads them, (q, k, v, do) and
+    o when given (the dQ kernel's), and the ctypes arguments both kernels
+    share: (dtype, B, S, H, Hkv, D), (strides, scale, causal), and the
+    strides' buffer, which must live until the launch. The strides are the
+    batch, sequence and head strides of each operand in that order."""
     b, s, h, d = q.shape
-    q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do.to(q.dtype)))
-    lse, delta = lse.contiguous(), delta.contiguous()
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr())
+    if do.shape != q.shape or (o is not None and o.shape != q.shape):
+        raise ValueError(f"do and o must have q's shape {tuple(q.shape)}")
+    more = () if o is None else (o.to(q.dtype),)
+    ops = tuple(_kernel_operand(t) for t in (q, k, v, do.to(q.dtype), *more))
+    st = [x for t in ops for x in t.stride()[:3]]
+    strides = (ctypes.c_longlong * len(st))(*st)
     shape = (_SUPPORTED[q.dtype], b, s, h, k.shape[2], d)
     tail = (ctypes.cast(strides, ctypes.c_void_p), d ** -0.5, int(causal))
-    return (q, k, v, do, lse, delta), ins, shape, tail, strides
+    return ops, shape, tail, strides
 
 
 def _run(name: str, args, device) -> None:
@@ -272,25 +298,38 @@ def _run(name: str, args, device) -> None:
     _check_rc(name, rc)
 
 
-def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool = True):
-    """dQ [B, S, H, D] in q's dtype from the dQ kernel (CUDA tensors only);
-    lse and delta are fp32 [B, H, S]."""
+def flash_bwd_dq_kernel(q, k, v, o, do, lse, causal: bool = True):
+    """(dQ [B, S, H, D] in q's dtype, delta fp32 [B, H, S]) from the dQ
+    kernel (CUDA tensors only), which computes delta = rowsum(dO * O) in its
+    prologue; lse is fp32 [B, H, S]."""
     global launches_bwd_dq
-    ops, ins, shape, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal)
-    dq = torch.empty(ops[0].shape, dtype=q.dtype, device=q.device)
-    _run("flash_bwd_dq", (*ins, dq.data_ptr(), *shape, *tail), q.device)
+    _check_launch(q, k, v, o, do, lse)
+    (q, k, v, do, o), shape, tail, _keep = _bwd_args(q, k, v, do, causal, o)
+    lse = lse.contiguous()
+    b, s, h, _d = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _run("flash_bwd_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                          delta.data_ptr(), dq.data_ptr(), *shape, *tail),
+         q.device)
     launches_bwd_dq += 1
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool = True):
     """(dK, dV) [B, S, Hkv, D] in k's and v's dtypes from the dK/dV kernel
-    (CUDA tensors only), summed over the q heads of each kv head."""
+    (CUDA tensors only), summed over the q heads of each kv head; lse and
+    delta (as the dQ kernel returns it) are fp32 [B, H, S]."""
     global launches_bwd_dkv
-    ops, ins, shape, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal)
-    dk = torch.empty(ops[1].shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(ops[2].shape, dtype=v.dtype, device=q.device)
-    _run("flash_bwd_dkv", (*ins, dk.data_ptr(), dv.data_ptr(), *shape, *tail),
+    _check_launch(q, k, v, do, lse, delta)
+    (q, k, v, do), shape, tail, _keep = _bwd_args(q, k, v, do, causal)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _run("flash_bwd_dkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), *shape, *tail),
          q.device)
     launches_bwd_dkv += 1
     return dk, dv
@@ -307,12 +346,11 @@ def flash_attention_bwd(
     lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's inputs and residuals (o, lse) and the
-    output grad do: the plain version for CPU tensors, else the dQ and
-    dK/dV kernels."""
+    output grad do: the plain version for CPU tensors, else two kernels, dQ
+    (which writes delta) and then dK/dV on that delta."""
     if _on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
-    delta = flash_attention_delta(o, do)
-    dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal)
+    dq, delta = flash_bwd_dq_kernel(q, k, v, o, do, lse, causal)
     return (dq, *flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal))
 
 

@@ -194,9 +194,71 @@ def test_gradients_flow_and_no_graph_under_no_grad():
 def test_bwd_kernel_wrappers_take_cuda_tensors_only():
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 16, 2, 2, 16)))
     lse = torch.zeros((1, 2, 16))
-    for fn in (tflash.flash_bwd_dq_kernel, tflash.flash_bwd_dkv_kernel):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(q, k, v, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_bwd_dq_kernel(q, k, v, q, q, lse)  # o, do, lse
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_bwd_dkv_kernel(q, k, v, q, lse, lse)  # do, lse, delta
+
+
+DQ_CASES = [
+    ((2, 128, 2, 2, 64), True),
+    ((2, 128, 2, 2, 64), False),
+    ((1, 128, 4, 1, 32), True),  # GQA, n_rep 4
+    ((1, 128, 4, 1, 32), False),
+    ((1, 192, 2, 2, 32), True),  # three 64-row reference blocks
+    ((2, 100, 2, 2, 32), True),  # S that no 64-row block divides
+]
+DQ_IDS = ["causal", "non_causal", "gqa4", "gqa4_non_causal", "three_blocks",
+          "ragged_s"]
+
+
+@pytest.mark.parametrize("shape,causal", DQ_CASES, ids=DQ_IDS)
+def test_dq_reference_matches_jax_bwd(shape, causal):
+    """flash_bwd_dq_reference (the dQ kernel's plain version, delta included)
+    against the reference: dq from `_bwd`'s dQ Pallas kernel (interpret mode)
+    on its own residuals, at GRAD_ATOL (fp32 sums over S terms in another
+    order); delta against the reference's own expression,
+    jnp.sum(do.f32 * o.f32, -1) (:247), at 1e-5 (fp32 sums of D products of
+    magnitude ~1 in another order: a few units of 2^-24 times the row's
+    sum of |dO * O|, well under 1e-5 here)."""
+    q, k, v = _qkv(shape, seed=9)
+    b, s, h, d = q.shape
+    do = np.random.default_rng(10).standard_normal(q.shape, dtype=np.float32)
+    res, block = _jax_residuals(q, k, v, causal)
+    dot = jnp.asarray(do).transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    jdq, _jdk, _jdv = jflash._bwd(d ** -0.5, block, block, causal, True, res,
+                                  dot)
+    jdelta = jnp.sum(dot.astype(jnp.float32) * res[3].astype(jnp.float32),
+                     axis=-1)
+    o = torch.from_numpy(_from_bh(res[3], b, h).copy())
+    lse = torch.from_numpy(np.asarray(res[4]).reshape(b, h, s).copy())
+    dq, delta = tflash.flash_bwd_dq_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), o, lse,
+        torch.from_numpy(do), causal)
+    assert dq.dtype == torch.float32 and dq.shape == q.shape
+    assert delta.dtype == torch.float32 and delta.shape == (b, h, s)
+    np.testing.assert_allclose(dq.numpy(), _from_bh(jdq, b, h),
+                               atol=GRAD_ATOL)
+    np.testing.assert_allclose(delta.reshape(b * h, s).numpy(),
+                               np.asarray(jdelta), atol=1e-5)
+
+
+def test_dq_reference_is_the_full_reference_dq():
+    """The dQ plain version and the plain version of both kernels share
+    their terms: the same dq bit for bit, in fp32 and in bf16, and the delta
+    of flash_attention_delta."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 64, 4, 2, 16), seed=11))
+    do = torch.from_numpy(
+        np.random.default_rng(12).standard_normal(q.shape, dtype=np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        args = [x.to(dt) for x in (q, k, v)]
+        o, lse = tflash.flash_attention_fwd_reference(*args, True)
+        dq, delta = tflash.flash_bwd_dq_reference(*args, o, lse, do.to(dt),
+                                                  True)
+        want = tflash.flash_attention_bwd_reference(*args, o, lse, do.to(dt),
+                                                    True)[0]
+        assert dq.dtype == dt and torch.equal(dq, want)
+        assert torch.equal(delta, tflash.flash_attention_delta(o, do.to(dt)))
 
 
 @pytest.mark.parametrize(
