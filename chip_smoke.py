@@ -2,19 +2,23 @@
 
     python3 chip_smoke.py                  # every phase (what a check runs)
     timeout 300 python3 chip_smoke.py kernel   # the kernel phase only
+    timeout 600 python3 chip_smoke.py serve_7b # the serve_7b phase only
 
-Run from the repo root on a machine with one CUDA card. Five phases; any
+Run from the repo root on a machine with one CUDA card. Six phases; any
 failure raises and the script exits non-zero without a result line. With
-the argument ``kernel`` it runs the kernel phase alone and prints no result
-line: the first call after a kernel changes, under ``timeout``.
+the argument ``kernel`` (or ``serve_7b``) it runs that phase alone and
+prints no result line: the first call after a kernel (or the serving path)
+changes, under ``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
    registers, shared memory and spills for each; holds the forward kernel
    and the two backward kernels (dQ with the delta it fuses, dK/dV on that
-   delta) against their plain PyTorch versions on the card, and times
-   kernels, plain versions and the library yardsticks (SDPA forward and
-   backward) at the 400M model's shapes (CUDA events, after warm-up).
+   delta) against their plain PyTorch versions on the card, at the 400M
+   model's shapes and at others (ragged S, GQA, fp32, and the head dims the
+   kernels pad: 16, 32, 64, 96, 192, 256), and times kernels, plain
+   versions and the library yardsticks (SDPA forward and backward) at the
+   400M model's shapes (CUDA events, after warm-up).
 2. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
@@ -32,6 +36,20 @@ line: the first call after a kernel changes, under ``timeout``.
 5. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
    greedy requests from client threads; then, in float32 with TF32 off, the
    engine's greedy tokens for 3 interleaved prompts must EQUAL ``generate``'s.
+6. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
+   heads x 128, full width and depth) from ``init_params_int8`` on the card
+   (weight bytes and peak memory printed), served through ``LLMEngine`` at
+   bench.py's shape (8 slots, max_len 512, prefill bucket 128, blocks of 8
+   steps): 8 concurrent greedy requests of 128-token prompts and 64 new
+   tokens (TTFT median and max, decode tokens/s with 8 slots active) and a
+   profiled decode block (device busy share, top kernels, device time by
+   kind, the dequant's device time per step); the same on bf16 weights of
+   the same init, timing only. Checks: 8 valid 64-token streams each time;
+   in float32 with TF32 off, the engine's greedy tokens EQUAL
+   ``generate``'s on the int8 weights at full depth; int8 against bf16
+   logits on one 128-token prompt within ``INT8_LOGITS_RTOL`` at 2 layers
+   (full depth reported). No flash kernel runs here (dense attention, as in
+   JAX): the phase reports ``flash_launches`` 0.
 
 Prints one JSON line per phase, the card's name and power limit (as
 nvidia-smi reports them), a ``kernels`` JSON line, and as its last line
@@ -85,11 +103,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, top: int = 10) -> dict:
+# Kinds of kernel in a decode step, matched in order on the full kernel
+# name: dtype conversions (the dequant's int8 -> bf16 and the cached
+# attention's bf16 -> fp32 among them), products by a broadcast scale and
+# other elementwise multiplies, matrix products (cuBLAS's nvjet and gemv
+# kernels).
+DECODE_KINDS = {"copy_convert": "direct_copy_kernel", "mul": "MulFunctor",
+                "gemm": "gemm|gemv|nvjet|xmma|cutlass"}
+
+
+def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
     """Runs ``fn()`` once under torch.profiler. Returns the host wall time,
     the time the host took to queue the work (until ``fn`` returned), the
     device's busy time (union of its kernel and copy intervals), the busy
-    share of the wall, and the kernels with the most device time."""
+    share of the wall, the kernels with the most device time and, with
+    ``kinds`` (name -> regex), the device time of each kind of kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -104,17 +132,25 @@ def device_profile(fn, top: int = 10) -> dict:
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     busy_us, end, by_name = 0.0, float("-inf"), {}
+    by_kind = dict.fromkeys([*kinds, "other"], 0.0) if kinds else {}
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
+        if kinds:
+            kind = next((k for k, rx in kinds.items() if re.search(rx, name)),
+                        "other")
+            by_kind[kind] += (stop - start) / 1e3
         name = name[:80]
         by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
     busy_ms = busy_us / 1e3 if spans else None  # None: profiler saw none
-    return {"wall_ms": wall * 1e3, "host_queue_ms": queued * 1e3,
-            "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / (wall * 1e3) if spans else None,
-            "top_kernels_ms": sorted(by_name.items(),
-                                     key=lambda kv: -kv[1])[:top]}
+    out = {"wall_ms": wall * 1e3, "host_queue_ms": queued * 1e3,
+           "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / (wall * 1e3) if spans else None,
+           "top_kernels_ms": sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:top]}
+    if kinds:
+        out["device_ms_by_kind"] = by_kind
+    return out
 
 
 def attention_bound_ms(b, s, h, d, dtype, causal) -> tuple:
@@ -198,6 +234,21 @@ BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 # D * 2^-24 * sum|dO * O| whatever its order, so the two may differ by
 # twice that: |err| <= DELTA_TERM_RTOL * D * sum_d |dO * O| per row.
 DELTA_TERM_RTOL = 2 * 2.0 ** -24
+# Head dims that the kernels pad (any multiple of 16 up to 256 is taken):
+# D 16, ``TransformerConfig.tiny``'s (one 64-column block, 48 columns
+# zero-filled by TMA); D 96 (padded to 128: the second 64-column block half
+# filled); D 192 (padded to 256: the dK/dV kernel's second 128-column chunk
+# half filled). Causal and not, one GQA case, one fp32 case; [B, S, H, D],
+# kv heads, dtype, causal.
+HEAD_DIM_CASES = [
+    ((2, 256, 4, 16), 4, torch.bfloat16, True),
+    ((2, 300, 4, 16), 2, torch.bfloat16, False),
+    ((2, 384, 8, 96), 8, torch.bfloat16, True),
+    ((2, 300, 8, 96), 8, torch.bfloat16, False),
+    ((1, 320, 4, 192), 4, torch.bfloat16, True),
+    ((1, 257, 4, 192), 4, torch.bfloat16, False),
+    ((1, 200, 4, 96), 4, torch.float32, True),
+]
 
 
 def compare_kernel(fa, gen, shape, hkv, dtype, causal) -> tuple:
@@ -340,7 +391,7 @@ def phase_kernel() -> dict:
         ((2, 1040, 8, 128), 2, torch.bfloat16, True),
         ((2, 130, 8, 128), 2, torch.bfloat16, True),
         ((1, 320, 8, 256), 2, torch.bfloat16, False),
-    ]
+    ] + HEAD_DIM_CASES
     with torch.inference_mode():
         main, (q, k, v, o, lse) = compare_kernel(fa, gen, MAIN_SHAPE, h,
                                                  torch.bfloat16, True)
@@ -653,10 +704,12 @@ def _serve_concurrently(engine, prompts, max_new_tokens):
     return results, stamps
 
 
-def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300) -> dict:
-    """One engine-sized decode block (8 slots at position 300 of a
-    1024-row cache, 8 greedy steps) under the profiler: does the host's
-    queueing or the device bound a decode step?"""
+def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
+                   max_len=1024) -> dict:
+    """One engine-sized decode block (``slots`` slots at position ``pos`` of
+    a ``max_len``-row cache, ``steps`` greedy steps) under the profiler:
+    does the host's queueing or the device bound a decode step? Device time
+    is also summed by kind of kernel (``DECODE_KINDS``)."""
     from ray_tpu_torch.models.generation import (
         decode_block,
         init_kv_cache,
@@ -664,7 +717,7 @@ def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300) -> dict:
     )
 
     ip, icfg = prepare_for_inference(params, cfg)
-    cache = init_kv_cache(icfg, slots, 1024)
+    cache = init_kv_cache(icfg, slots, max_len)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, slots)).cuda()
     pos = torch.full((slots,), pos, device=tok.device)
     host = np.zeros(slots)
@@ -674,14 +727,56 @@ def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300) -> dict:
 
     with torch.inference_mode():
         block()  # warm-up
-        prof = device_profile(block)
+        prof = device_profile(block, kinds=DECODE_KINDS)
     prof["steps"] = steps
     prof["wall_ms_per_step"] = prof["wall_ms"] / steps
     return prof
 
 
-def phase_serve(params, cfg) -> dict:
+def serve_metrics(results, stamps, new: int, vocab: int) -> dict:
+    """Checks that every stream has ``new`` valid ids; TTFT median and max,
+    and the decode rate once every request has its first token (the tokens
+    that arrived after that moment over the time they took)."""
+    for r in results:
+        check(r is not None and len(r) == new
+              and all(isinstance(t, int) and 0 <= t < vocab for t in r),
+              f"bad stream {r}")
+    ttft = [s[0] for s in stamps]
+    wall = max(s[-1] for s in stamps)
+    all_in = max(ttft)
+    decoded = sum(t > all_in for s in stamps for t in s)
+    return {"requests": len(results), "new_tokens": new, "wall_s": wall,
+            "tokens_per_s": sum(map(len, results)) / wall,
+            "decode_tokens_per_s": decoded / (wall - all_in),
+            "ttft_ms_median": float(np.median(ttft)) * 1e3,
+            "ttft_ms_max": all_in * 1e3}
+
+
+def fp32_engine_equals_generate(params, cfg, rng) -> None:
+    """In float32 with TF32 off, the engine's greedy tokens for 3
+    interleaved prompts (2 slots, 16 new tokens) must EQUAL ``generate``'s,
+    one prompt at a time."""
     from ray_tpu_torch.models.generation import generate
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    new = 16
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 100, 70)]
+    ref = [generate(params, p[None], cfg32, max_new_tokens=new,
+                    max_len=256)[0].tolist() for p in prompts]
+    engine = LLMEngine(params, cfg32, max_slots=2, max_len=256,
+                       prefill_buckets=(64, 128))
+    try:
+        got, _ = _serve_concurrently(engine, prompts, new)
+    finally:
+        engine.shutdown()
+    check(got == ref, f"fp32 engine tokens differ from generate: {got} "
+          f"vs {ref}")
+
+
+def phase_serve(params, cfg) -> dict:
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -698,43 +793,191 @@ def phase_serve(params, cfg) -> dict:
         steps = engine.stats()["steps"]
     finally:
         engine.shutdown()
-    for r in results:
-        check(r is not None and len(r) == new
-              and all(isinstance(t, int) and 0 <= t < cfg.vocab_size
-                      for t in r), f"bad stream {r}")
-    ttft = [s[0] for s in stamps]
-    wall = max(s[-1] for s in stamps)
-    # decode rate once every request has its first token: the tokens that
-    # arrived after that moment over the time they took
-    all_in = max(ttft)
-    decoded = sum(t > all_in for s in stamps for t in s)
-    out = {"phase": "serve", "requests": len(prompts),
-           "prompt_lens": lens.tolist(), "new_tokens": new,
-           "wall_s": wall, "tokens_per_s": sum(map(len, results)) / wall,
-           "decode_tokens_per_s": decoded / (wall - all_in),
-           "ttft_ms_median": float(np.median(ttft)) * 1e3,
-           "ttft_ms_max": all_in * 1e3, "decode_steps": steps,
-           "flash_launches": fa.launches}
+    out = {"phase": "serve", "prompt_lens": lens.tolist(),
+           **serve_metrics(results, stamps, new, cfg.vocab_size),
+           "decode_steps": steps, "flash_launches": fa.launches}
     del engine
     out["decode_block_profile"] = decode_profile(params, cfg, rng)
     torch.cuda.empty_cache()
 
     # float32, TF32 off: the engine's greedy tokens must EQUAL generate's
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    prompts32 = [rng.integers(0, cfg.vocab_size, n) for n in (40, 100, 70)]
-    ref = [generate(params, p[None], cfg32, max_new_tokens=16,
-                    max_len=256)[0].tolist() for p in prompts32]
-    engine = LLMEngine(params, cfg32, max_slots=2, max_len=256,
-                       prefill_buckets=(64, 128))
+    fp32_engine_equals_generate(params, cfg, rng)
+    out["fp32_engine_equals_generate"] = True
+    emit(out)
+    return out
+
+
+def weight_bytes(params) -> dict:
+    """Bytes of the weights at rest: the layers' int8 ``q`` and fp32 scales,
+    their other leaves (norms; every weight when none is quantized), and
+    the embedding, lm_head and final norm."""
+    from ray_tpu_torch.models.quant import QTensor
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    out = {"layers_int8": 0, "layers_scales": 0, "layers_other": 0,
+           "embed_head_final_ln": 0}
+    for w in tree_leaves(params["layers"]):
+        if isinstance(w, QTensor):
+            out["layers_int8"] += w.q.numel() * w.q.element_size()
+            out["layers_scales"] += w.s.numel() * w.s.element_size()
+        else:
+            out["layers_other"] += w.numel() * w.element_size()
+    out["embed_head_final_ln"] = sum(
+        w.numel() * w.element_size() for name, sub in params.items()
+        if name != "layers" for w in tree_leaves(sub))
+    return out
+
+
+def dequant_ms_per_step(params, dtype) -> float:
+    """Device time (CUDA events) of dequantizing every layer weight once,
+    layer by layer, as one decode step or one prefill does."""
+    from ray_tpu_torch.models.quant import QTensor
+    from ray_tpu_torch.models.transformer import tree_leaves, unbind_layers
+
+    n_layers = params["layers"]["ln1"]["scale"].shape[0]
+    qts = [w for lp in unbind_layers(params, n_layers)
+           for w in tree_leaves(lp) if isinstance(w, QTensor)]
+
+    def run():
+        for w in qts:
+            w.to(dtype)
+
+    with torch.inference_mode():
+        return cuda_ms(run, 3, 1)
+
+
+def serve_7b_traffic(params, cfg, prompts, new) -> dict:
+    """bench.py's serving engine (8 slots, max_len 512, prefill bucket 128,
+    block 8 steps) answering ``prompts`` concurrently; then one profiled
+    decode block of 8 slots at a position inside that traffic."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    fa.launches = 0
+    engine = LLMEngine(params, cfg, max_slots=8, max_len=512,
+                       prefill_buckets=(128,), block_steps=8)
     try:
-        got, _ = _serve_concurrently(engine, prompts32, 16)
+        engine.generate(prompts[0][:64], max_new_tokens=4)  # warm-up
+        results, stamps = _serve_concurrently(engine, prompts, new)
+        steps = engine.stats()["steps"]
     finally:
         engine.shutdown()
-    check(got == ref, f"fp32 engine tokens differ from generate: {got} "
-          f"vs {ref}")
+    del engine
+    out = {**serve_metrics(results, stamps, new, cfg.vocab_size),
+           "decode_steps": steps, "flash_launches": fa.launches}
+    check(fa.launches == 0, "serve_7b attends densely: no flash launch")
+    torch.cuda.empty_cache()
+    out["decode_block_profile"] = decode_profile(
+        params, cfg, np.random.default_rng(SEED + 4), pos=len(prompts[0])
+        + new // 2, max_len=512)
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_vs(ref, got) -> dict:
+    """max|got - ref| / max|ref| and top-1 agreement of two logit tensors."""
+    ref, got = ref.float(), got.float()
+    return {"max_abs_diff_over_max_abs_ref":
+            ((got - ref).abs().max() / ref.abs().max()).item(),
+            "top1_agreement":
+            (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+
+
+# int8 against bf16 logits (tests/test_quant.py:63): the int8 grid moves
+# every weight by up to half a step of its channel's scale; gated at 2
+# layers of the full width, reported at full depth.
+INT8_LOGITS_RTOL = 0.12
+
+
+def phase_serve_7b() -> dict:
+    """``serve_7b`` (6.7B parameters, full width and depth) served int8 on
+    the card through ``LLMEngine`` at bench.py's shape, then the same
+    traffic on bf16 weights of the same init, timing only; the fp32 engine
+    equals ``generate`` on the int8 weights; int8 against bf16 logits."""
+    from ray_tpu_torch.models.generation import prepare_for_inference
+    from ray_tpu_torch.models.quant import (
+        init_params_by_layer,
+        init_params_int8,
+        quantize_params_int8,
+    )
+    from ray_tpu_torch.models.transformer import (
+        TransformerConfig,
+        forward,
+        init_params,
+        tree_map,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = TransformerConfig.serve_7b()
+    rng = np.random.default_rng(SEED + 5)
+    new = 64
+    prompts = [rng.integers(0, cfg.vocab_size, 128) for _ in range(8)]
+    probe = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 128))).cuda()
+    out = {"phase": "serve_7b", "param_count": cfg.param_count(),
+           "n_layers": cfg.n_layers, "prompt_len": 128}
+
+    # int8 weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_int8(cfg, SEED)
+    torch.cuda.synchronize()
+    out["int8_init_s"] = time.perf_counter() - t0
+    out["int8_weight_bytes"] = weight_bytes(params)
+    out["int8_max_memory_allocated_after_init_bytes"] = (
+        torch.cuda.max_memory_allocated())
+    out["int8"] = serve_7b_traffic(params, cfg, prompts, new)
+    out["int8"]["dequant_ms_per_step"] = dequant_ms_per_step(params,
+                                                             cfg.dtype)
+    busy = out["int8"]["decode_block_profile"]["device_busy_ms"]
+    out["int8"]["dequant_share_of_decode_device_busy"] = (
+        out["int8"]["dequant_ms_per_step"] * 8 / busy if busy else None)
+    out["int8"]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    fp32_engine_equals_generate(params, cfg, rng)
     out["fp32_engine_equals_generate"] = True
+    out["fp32_check_layers"] = cfg.n_layers
+    out["fp32_check_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        ip, icfg = prepare_for_inference(params, cfg)
+        int8_logits = forward(ip, probe, icfg).float()
+    del params, ip
+    torch.cuda.empty_cache()
+
+    # bf16 weights of the same init (each layer the bf16 rounding of the
+    # fp32 layer that init_params_int8 quantized): timing only
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_by_layer(
+        cfg, SEED, lambda layer: tree_map(lambda w: w.to(torch.bfloat16),
+                                          layer))
+    torch.cuda.synchronize()
+    out["bf16_init_s"] = time.perf_counter() - t0
+    out["bf16_weight_bytes"] = weight_bytes(params)
+    out["bf16"] = serve_7b_traffic(params, cfg, prompts, new)
+    out["bf16"]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        ip, icfg = prepare_for_inference(params, cfg)
+        out["full_depth_int8_vs_bf16_logits"] = logits_vs(
+            forward(ip, probe, icfg), int8_logits)
+    del params, ip, int8_logits
+    torch.cuda.empty_cache()
+
+    # the gate: 2 layers at full width, a bf16 init against its int8
+    # quantization, on one 128-token prompt
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        p2 = init_params(cfg2, SEED)
+        ref = forward(p2, probe, cfg2)
+        got = forward(quantize_params_int8(p2), probe, cfg2)
+        two = logits_vs(ref, got)
+    del p2, ref, got
+    torch.cuda.empty_cache()
+    two["rtol"] = INT8_LOGITS_RTOL
+    out["two_layer_int8_vs_bf16_logits"] = two
+    check(two["max_abs_diff_over_max_abs_ref"] < INT8_LOGITS_RTOL,
+          f"int8 logits stray from bf16 at 2 layers: {two}")
+    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -744,8 +987,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
-    if argv not in ([], ["kernel"]):
-        print("usage: chip_smoke.py [kernel]", file=sys.stderr)
+    if argv not in ([], ["kernel"], ["serve_7b"]):
+        print("usage: chip_smoke.py [kernel | serve_7b]", file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
@@ -754,6 +997,10 @@ def main(argv) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    if argv == ["serve_7b"]:
+        phase_serve_7b()
+        print(smi, flush=True)
+        return 0
     kernel = phase_kernel()
     if argv == ["kernel"]:
         print(smi, flush=True)
@@ -764,6 +1011,9 @@ def main(argv) -> int:
     train = phase_train(cfg)
     phase_grad(cfg)
     phase_serve(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_7b()
     print(smi, flush=True)
     per_step = train["launches_per_step"]
     main_bwd = kernel["bwd_cases"][0]

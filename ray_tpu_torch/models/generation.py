@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
+from ray_tpu_torch.models.quant import QTensor
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     apply_layer,
@@ -34,8 +35,11 @@ from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
 def prepare_for_inference(params, config: TransformerConfig):
     """Cast training params (fp32 master copy) to the compute dtype ONCE:
-    serving streams every weight per decode step. Returns (params, config)."""
-    cast = tree_map(lambda x: x.to(config.dtype), params)
+    serving streams every weight per decode step. Int8-quantized weights
+    (``models/quant.py`` QTensor) pass through untouched: they dequantize
+    where the layer uses them. Returns (params, config)."""
+    cast = tree_map(
+        lambda x: x if isinstance(x, QTensor) else x.to(config.dtype), params)
     return cast, dataclasses.replace(config, param_dtype=config.dtype)
 
 

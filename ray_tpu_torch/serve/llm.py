@@ -62,7 +62,9 @@ def _to_host_async(t: torch.Tensor):
         return t, None
     host = t.to("cpu", non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    # the copy runs on the current stream of t's device, which need not be
+    # the current device (LLMEngine(device="cuda:1"))
+    done.record(torch.cuda.current_stream(t.device))
     return host, done
 
 

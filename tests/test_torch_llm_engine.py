@@ -136,3 +136,33 @@ def test_llm_server_streams_and_blocks_alike():
         assert srv(prompt, 8) == toks
     finally:
         srv.engine.shutdown()
+
+
+def test_host_copy_event_is_recorded_on_the_tensors_device(monkeypatch):
+    """``_to_host_async`` records its event on the current stream of the
+    tensor's own device, not of the current device: with
+    ``LLMEngine(device="cuda:1")`` the engine thread's current device stays
+    cuda:0, and an event there would not cover the copy. The CPU has no
+    second card, so torch.cuda is patched: the event must be recorded on
+    cuda:1's stream."""
+    from ray_tpu_torch.serve import llm
+
+    recorded = []
+
+    class FakeEvent:
+        def record(self, stream=None):
+            recorded.append(stream)
+
+    class OnCuda1:
+        device = torch.device("cuda", 1)
+
+        def to(self, where, non_blocking=False):
+            assert where == "cpu" and non_blocking
+            return torch.zeros(2)
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream of", device))
+    host, done = llm._to_host_async(OnCuda1())
+    assert isinstance(done, FakeEvent) and host.shape == (2,)
+    assert recorded == [("stream of", torch.device("cuda", 1))]

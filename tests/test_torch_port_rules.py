@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from ray_tpu_torch.models import convert, generation, transformer
+from ray_tpu_torch.models import convert, generation, quant, transformer
 from ray_tpu_torch.parallel import train_step
 from ray_tpu_torch.serve import llm
 
@@ -87,6 +87,7 @@ ENTRY_POINTS = {
     "params_from_numpy": lambda: convert.params_from_numpy(
         {"w": np.zeros(2, np.float32)}),
     "init_kv_cache": lambda: generation.init_kv_cache(_tiny(), 1, 8),
+    "init_params_int8": lambda: quant.init_params_int8(_tiny(), 0),
     "generate": lambda: generation.generate(
         transformer.init_params(_tiny(), 0, device="cpu"),
         np.ones((1, 4), np.int64), _tiny(), max_new_tokens=2),
