@@ -1,14 +1,14 @@
 """On-card smoke of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase (what a check runs)
-    timeout 300 python3 chip_smoke.py kernel   # the kernel phase only
+    timeout 300 python3 chip_smoke.py kernel   # the kernel phases only
     timeout 600 python3 chip_smoke.py serve_7b # the serve_7b phase only
 
-Run from the repo root on a machine with one CUDA card. Six phases; any
+Run from the repo root on a machine with one CUDA card. Seven phases; any
 failure raises and the script exits non-zero without a result line. With
-the argument ``kernel`` (or ``serve_7b``) it runs that phase alone and
-prints no result line: the first call after a kernel (or the serving path)
-changes, under ``timeout``.
+the argument ``kernel`` (or ``serve_7b``) it runs the kernel phases (or the
+serve_7b phase) alone and prints no result line: the first call after a
+kernel (or the serving path) changes, under ``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -19,47 +19,66 @@ changes, under ``timeout``.
    kernels pad: 16, 32, 64, 96, 192, 256), and times kernels, plain
    versions and the library yardsticks (SDPA forward and backward) at the
    400M model's shapes (CUDA events, after warm-up).
-2. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
+2. int8_kernel: ``int8_matmul`` against its plain version under a stated
+   bound, at serve_7b's six weight shapes at M 8 (decode) and 128 (prefill)
+   in bf16 and fp32, at ragged M (1, 3, 17, and the fp32 check's 2, 40, 64)
+   and at ``tiny``'s widths; every case also bit-equal across two launches
+   and with row 0 computed alone. Device times inside CUDA graphs (kernel,
+   plain version, ``torch._weight_int8pack_mm``, a bf16 product over
+   pre-dequantized weights) per shape and per decode step.
+3. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
    the logits must agree with the dense-attention forward.
-3. train: ``bench_400m`` (remat "dots", flash) through
+4. train: ``bench_400m`` (remat "dots", flash) through
    ``make_sharded_state`` / ``make_train_step`` / ``default_optimizer`` on
    one seeded batch [8, 2048] repeated: 2 warm-up and 5 timed steps, each
    launching the forward kernel 48 times (forward and remat recompute) and
    each backward kernel 24 times; loss and grad norm finite, the loss
    falling; step ms, tokens/s, MFU, peak memory and a profiled step.
-4. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
+5. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
    at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
    bf16 train steps' losses and grad norms, flash against dense (step 1
    held to a tolerance, the rest reported).
-5. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
-   greedy requests from client threads; then, in float32 with TF32 off, the
-   engine's greedy tokens for 3 interleaved prompts must EQUAL ``generate``'s.
-6. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
+6. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
+   greedy requests from client threads through its CUDA graphs (graph
+   replays > 0, no decode step run eagerly during the traffic); one
+   temperature-1 request twice gives the same tokens; the sampler's hash
+   bits equal on the CPU and the card; a decode block replayed from a graph
+   and run eagerly, each profiled; then, in float32 with TF32 off, the
+   engine's greedy tokens for 3 interleaved prompts must EQUAL
+   ``generate``'s.
+7. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
    heads x 128, full width and depth) from ``init_params_int8`` on the card
-   (weight bytes and peak memory printed), served through ``LLMEngine`` at
-   bench.py's shape (8 slots, max_len 512, prefill bucket 128, blocks of 8
-   steps): 8 concurrent greedy requests of 128-token prompts and 64 new
-   tokens (TTFT median and max, decode tokens/s with 8 slots active) and a
-   profiled decode block (device busy share, top kernels, device time by
-   kind, the dequant's device time per step); the same on bf16 weights of
-   the same init, timing only. Checks: 8 valid 64-token streams each time;
-   in float32 with TF32 off, the engine's greedy tokens EQUAL
-   ``generate``'s on the int8 weights at full depth; int8 against bf16
-   logits on one 128-token prompt within ``INT8_LOGITS_RTOL`` at 2 layers
-   (full depth reported). No flash kernel runs here (dense attention, as in
-   JAX): the phase reports ``flash_launches`` 0.
+   (weight bytes and peak memory printed), served through ``LLMEngine``'s
+   graphs at bench.py's shape (8 slots, max_len 512, prefill bucket 128,
+   blocks of 8 steps): 8 concurrent greedy requests of 128-token prompts
+   and 64 new tokens (TTFT median and max, decode tokens/s with 8 slots
+   active), the same graph and sampling checks as serve, int8_matmul
+   launches per decode step counted over the graphs' replays (6 per layer),
+   and the profiled decode blocks (graph and eager; device time by kind;
+   the plain dequant's time per step, which the kernel took off the path);
+   the same on bf16 weights of the same init (no int8 launch). Checks: 8
+   valid 64-token streams each time; in float32 with TF32 off, the engine's
+   greedy tokens EQUAL ``generate``'s on the int8 weights at full depth
+   (through the graphs and the kernel); int8 against bf16 logits on one
+   128-token prompt within ``INT8_LOGITS_RTOL`` at 2 layers (full depth
+   reported). No flash kernel runs here (dense attention, as in JAX): the
+   phase reports ``flash_launches`` 0.
 
 Prints one JSON line per phase, the card's name and power limit (as
-nvidia-smi reports them), a ``kernels`` JSON line, and as its last line
+nvidia-smi reports them), a ``kernels`` JSON line (four kernels; the int8
+kernel's numbers are per serve_7b decode step), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import itertools
 import json
 import re
 import subprocess
@@ -104,12 +123,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 # Kinds of kernel in a decode step, matched in order on the full kernel
-# name: dtype conversions (the dequant's int8 -> bf16 and the cached
-# attention's bf16 -> fp32 among them), products by a broadcast scale and
-# other elementwise multiplies, matrix products (cuBLAS's nvjet and gemv
-# kernels).
-DECODE_KINDS = {"copy_convert": "direct_copy_kernel", "mul": "MulFunctor",
-                "gemm": "gemm|gemv|nvjet|xmma|cutlass"}
+# name: the int8 weight-only matmul kernel; dtype conversions (the plain
+# dequant's int8 -> bf16 and the cached attention's bf16 -> fp32 among
+# them), products by a broadcast scale and other elementwise multiplies,
+# matrix products (cuBLAS's nvjet and gemv kernels).
+DECODE_KINDS = {"int8_matmul": "int8_mm", "copy_convert": "direct_copy_kernel",
+                "mul": "MulFunctor", "gemm": "gemm|gemv|nvjet|xmma|cutlass"}
 
 
 def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
@@ -460,6 +479,192 @@ def phase_kernel() -> dict:
     return out
 
 
+# The int8 weight-only matmul kernel against its plain version, which
+# multiplies the same dequantized weights (the kernel rounds them as
+# ``QTensor.to`` does, bit for bit) and sums in another order:
+# - fp32: two fp32 sums of the same K exact products, each within
+#   K * 2^-24 * sum_k |x_k w_k| of the exact sum, so they may differ by twice
+#   that: |y - ref| <= 2 K 2^-24 S, S = |x| @ |w| per element;
+# - bf16: the same fp32 sums, each rounded once to bf16 (8 significant bits,
+#   so within 2^-8 of the value): |y - ref| <= 2 K 2^-24 S
+#   + 2^-7 (1 + 2^-7) max(|y|, |ref|).
+# The plain version's product runs with cuBLAS's reduced-precision bf16
+# reductions off, so its sums are fp32 as the bound assumes.
+INT8_BF16_ROUND = 2.0 ** -7 * (1 + 2.0 ** -7)
+INT8_MS = (8, 128)  # serve_7b's decode (8 slots) and prefill (bucket 128) M
+# Ragged M, and the M of the fp32 engine check (2 slots, buckets 64 and 128).
+INT8_RAGGED_MS = (1, 3, 17, 2, 40, 64)
+
+
+def int8_weight_shapes(cfg) -> dict:
+    """(K, N) of the six int8 weights of a layer, as ``QTensor.matmul``
+    flattens them."""
+    d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
+    kvd = cfg.kv_heads * cfg.d_head
+    return {"wq": (d, hd), "wk": (d, kvd), "wv": (d, kvd), "attn_wo": (hd, d),
+            "mlp_wi": (d, cfg.d_ff), "mlp_wo": (cfg.d_ff, d)}
+
+
+def int8_operands(gen, m, k, n, dtype, copies=1) -> tuple:
+    """x [m, k] ~ N(0, 1) and ``copies`` int8 weights [k, n] with their
+    scales (uniform int8, scales near those of a N(0, 1/k) init)."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    ws = [(torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                         dtype=torch.int8),
+           (torch.rand(n, generator=gen, device="cuda") + 0.5)
+           * (4.0 / 127.0 / k ** 0.5)) for _ in range(copies)]
+    return x, ws
+
+
+def int8_bound_ms(m, k, n, dtype) -> tuple:
+    """The least time the card could take for one product: x, q, s read and
+    y written once over the memory rate, against 2 M K N operations over the
+    peak rate for x's type (bf16 tensor cores, fp32 CUDA cores)."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = m * k * elem + k * n + 4 * n + m * n * elem
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = 2 * m * k * n / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_int8(im, gen, m, k, n, dtype) -> dict:
+    """One product of the kernel against the plain version under the bound
+    above; a second launch must agree bit for bit, and so must the first
+    row computed alone (a row's sum order depends on K alone)."""
+    x, [(q, s)] = int8_operands(gen, m, k, n, dtype)
+    y = im.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_reference(x, q, s)
+    w = (q.to(dtype) * s.to(dtype)).float()
+    terms = x.float().abs() @ w.abs()
+    yf, rf = y.float(), ref.float()
+    tol = 2 * k * 2.0 ** -24 * terms
+    if dtype == torch.bfloat16:
+        tol = tol + INT8_BF16_ROUND * torch.maximum(yf.abs(), rf.abs())
+    err = (yf - rf).abs()
+    case = {"m": m, "k": k, "n": n,
+            "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": err.max().item(),
+            "ref_max_abs": rf.abs().max().item(),
+            "max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item()}
+    check(y.shape == (m, n) and y.dtype == dtype
+          and bool(torch.isfinite(yf).all()),
+          f"int8_matmul output of the wrong shape, dtype or not finite: "
+          f"{case}")
+    check(bool((err <= tol).all()),
+          f"int8_matmul disagrees with its plain version: {case}")
+    check(torch.equal(im.int8_matmul(x, q, s), y),
+          f"int8_matmul differs between two launches: {case}")
+    check(torch.equal(im.int8_matmul(x[:1].contiguous(), q, s), y[:1]),
+          f"int8_matmul's row 0 differs when computed alone: {case}")
+    return case
+
+
+def graph_ms(fn, args, reps: int = 10) -> float:
+    """Device ms per call of ``fn(*a)`` for a in ``args``: one pass over
+    ``args`` captured in a CUDA graph (after a warm-up pass on a side
+    stream) and replayed ``reps`` times, by CUDA events. No host time is in
+    it, as none is in a served decode step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in args:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in args:
+            fn(*a)
+    ms = cuda_ms(graph.replay, reps, warmup=1) / len(args)
+    del graph
+    return ms
+
+
+def int8_times(im, gen, m, k, n, dtype) -> dict:
+    """Device times of one product at (m, k, n) (``graph_ms``) on weights
+    that rotate through copies larger than L2 together (each call finds its
+    weight in device memory, as a decode step does): the kernel, its plain
+    version, ``torch._weight_int8pack_mm`` (q transposed to [N, K] and the
+    scales cast to x's dtype beforehand, as it takes them; None with the
+    reason where this torch has none on CUDA) and, as a second yardstick, a
+    bf16 product over weights dequantized beforehand."""
+    copies = max(2, -(-240_000_000 // (k * n)))
+    x, ws = int8_operands(gen, m, k, n, dtype, copies)
+    out = {"m": m, "k": k, "n": n,
+           "dtype": str(dtype).removeprefix("torch."), "weight_copies": copies,
+           "kernel_ms": graph_ms(lambda q, s: im.int8_matmul(x, q, s), ws),
+           "plain_ms": graph_ms(
+               lambda q, s: im.int8_matmul_reference(x, q, s), ws[:2])}
+    out["bound_ms"], out["bound_by"] = int8_bound_ms(m, k, n, dtype)
+    try:
+        packed = [(q.t().contiguous(), s.to(dtype)) for q, s in ws[:2]]
+        out["library_ms"] = graph_ms(
+            lambda qt, s: torch._weight_int8pack_mm(x, qt, s), packed)
+        del packed
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        out["library_ms"] = None
+        out["library_none_reason"] = f"torch._weight_int8pack_mm: {e}"[:300]
+    dq = [(q.to(dtype) * s.to(dtype),) for q, s in ws[:2]]
+    out["dequantized_matmul_ms"] = graph_ms(lambda w: x @ w, dq)
+    del dq, ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_kernel() -> dict:
+    """``int8_matmul`` (built by the kernel phase) against its plain version
+    at every int8 weight shape of serve_7b, at decode's and prefill's M, in
+    bf16 and fp32; at ragged M; at ``tiny``'s widths. Device times inside
+    CUDA graphs at serve_7b's shapes, bf16, and per decode step (a layer's
+    six products times its 32 layers)."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.ops import int8_matmul as im
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cfg = TransformerConfig.serve_7b()
+    shapes = int8_weight_shapes(cfg)
+    distinct = sorted(set(shapes.values()))
+    cases = []
+    with torch.inference_mode():
+        for (k, n), m, dtype in itertools.product(
+                distinct, INT8_MS, (torch.bfloat16, torch.float32)):
+            cases.append(compare_int8(im, gen, m, k, n, dtype))
+        serve_7b_err = max(c["max_abs_err"] for c in cases)
+        k, n = distinct[0]
+        for m, dtype in itertools.product(INT8_RAGGED_MS,
+                                          (torch.bfloat16, torch.float32)):
+            cases.append(compare_int8(im, gen, m, k, n, dtype))
+        for name, (k, n) in int8_weight_shapes(TransformerConfig.tiny(
+                n_kv_heads=2)).items():
+            for m in (8, 64):
+                cases.append({"tiny": name,
+                              **compare_int8(im, gen, m, k, n,
+                                             torch.bfloat16)})
+        times = {(k, n, m): int8_times(im, gen, m, k, n, torch.bfloat16)
+                 for (k, n), m in itertools.product(distinct, INT8_MS)}
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    per_step = {}
+    for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                "dequantized_matmul_ms"):
+        vals = [times[(k, n, INT8_MS[0])][key] for k, n in shapes.values()]
+        per_step[key] = (None if None in vals
+                         else cfg.n_layers * float(sum(vals)))
+    out = {"phase": "int8_kernel", "cases": cases,
+           "serve_7b_max_abs_err": serve_7b_err,
+           "bf16_round_rtol": INT8_BF16_ROUND,
+           "times": list(times.values()),
+           "decode_step": {"m": INT8_MS[0], "layers": cfg.n_layers,
+                           "launches": 6 * cfg.n_layers, **per_step,
+                           "bound_by": "bytes"}}
+    check(all(times[(k, n, INT8_MS[0])]["bound_by"] == "bytes"
+              for k, n in distinct), "decode products are bound by bytes")
+    emit(out)
+    return out
+
+
 def phase_forward(params, cfg) -> dict:
     from ray_tpu_torch.models.generation import prepare_for_inference
     from ray_tpu_torch.models.transformer import forward, loss_fn
@@ -704,26 +909,35 @@ def _serve_concurrently(engine, prompts, max_new_tokens):
     return results, stamps
 
 
+def _decode_state(cfg, rng, slots, pos, max_len):
+    """A fresh engine-sized cache and greedy slot state on the card: random
+    next tokens, every slot at position ``pos``."""
+    from ray_tpu_torch.models.generation import init_kv_cache
+
+    cache = init_kv_cache(cfg, slots, max_len)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, slots)).cuda()
+    pos_t = torch.full((slots,), pos, device=tok.device)
+    zeros_i = torch.zeros(slots, dtype=torch.long, device=tok.device)
+    temps = torch.zeros(slots, dtype=torch.float32, device=tok.device)
+    return cache, tok, pos_t, temps, zeros_i, zeros_i.clone()
+
+
 def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
                    max_len=1024) -> dict:
     """One engine-sized decode block (``slots`` slots at position ``pos`` of
-    a ``max_len``-row cache, ``steps`` greedy steps) under the profiler:
-    does the host's queueing or the device bound a decode step? Device time
-    is also summed by kind of kernel (``DECODE_KINDS``)."""
+    a ``max_len``-row cache, ``steps`` greedy steps) run eagerly, op by op,
+    under the profiler: the host's share of a step without graphs. Device
+    time is also summed by kind of kernel (``DECODE_KINDS``)."""
     from ray_tpu_torch.models.generation import (
         decode_block,
-        init_kv_cache,
         prepare_for_inference,
     )
 
     ip, icfg = prepare_for_inference(params, cfg)
-    cache = init_kv_cache(icfg, slots, max_len)
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, slots)).cuda()
-    pos = torch.full((slots,), pos, device=tok.device)
-    host = np.zeros(slots)
+    state = _decode_state(icfg, rng, slots, pos, max_len)
 
     def block():
-        decode_block(ip, cache, tok, pos, host, host, host, icfg, steps)
+        decode_block(ip, *state, icfg, steps)
 
     with torch.inference_mode():
         block()  # warm-up
@@ -731,6 +945,135 @@ def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
     prof["steps"] = steps
     prof["wall_ms_per_step"] = prof["wall_ms"] / steps
     return prof
+
+
+def graph_decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
+                         max_len=1024) -> dict:
+    """The same decode block as the engine runs it: ``decode_block_into``
+    captured in one CUDA graph and replayed (every slot back at ``pos``
+    before each replay). Device ms per step by CUDA events over 5 replays,
+    then one replay under the profiler (busy share, device ms by kind), and
+    the int8 kernel launches the graph holds."""
+    from ray_tpu_torch.models.generation import (
+        decode_block_into,
+        prepare_for_inference,
+    )
+    from ray_tpu_torch.ops import int8_matmul as im
+
+    ip, icfg = prepare_for_inference(params, cfg)
+    cache, tok, pos_t, temps, seeds, counts = _decode_state(
+        icfg, rng, slots, pos, max_len)
+    out = torch.empty((slots, steps), dtype=torch.long, device=tok.device)
+    block = functools.partial(decode_block_into, ip, cache, tok, pos_t,
+                              temps, seeds, counts, icfg, out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            block()  # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        before = im.launches
+        with torch.cuda.graph(graph):
+            block()
+        launches = im.launches - before
+
+        def replay():
+            pos_t.fill_(pos)
+            graph.replay()
+
+        ms = cuda_ms(replay, 5, 1)
+        prof = device_profile(replay, kinds=DECODE_KINDS)
+    del graph
+    torch.cuda.empty_cache()
+    prof.update({"steps": steps, "device_ms_per_step_cuda_events": ms / steps,
+                 "wall_ms_per_step": prof["wall_ms"] / steps,
+                 "int8_launches_per_replay": launches})
+    prof["device_ms_per_step_by_kind"] = {
+        k: v / steps for k, v in prof["device_ms_by_kind"].items()}
+    return prof
+
+
+@contextlib.contextmanager
+def eager_decode_steps():
+    """Counts the decode steps that Python runs while the block is open
+    (``decode_step_multi`` called op by op); a replayed graph calls none."""
+    from ray_tpu_torch.models import generation
+
+    real = generation.decode_step_multi
+    count = [0]
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    generation.decode_step_multi = counted
+    try:
+        yield count
+    finally:
+        generation.decode_step_multi = real
+
+
+def graph_stats(engine, int8_wrapper_launches: int) -> dict:
+    """The engine's graph replays, the int8 kernel launches they made (each
+    graph's captured launches times its replays) beside those the wrapper
+    counted (warm-up and capture), and the launches per decode step."""
+    replays = engine.graph_replays
+    per_graph = engine.graph_int8_launches
+    decode = [key for key in replays if key[0] == "decode"]
+    steps = sum(replays[key] * key[1] for key in decode)
+    per_step = None
+    if steps:  # each block length's graph holds a whole number per step
+        per_step = sum(replays[key] * per_graph[key] for key in decode) / steps
+        per_step = int(per_step) if per_step.is_integer() else per_step
+    return {"graph_replays": {f"{a}_{b}": n for (a, b), n in replays.items()},
+            "graph_int8_launches": {f"{a}_{b}": n
+                                    for (a, b), n in per_graph.items()},
+            "replayed_decode_steps": steps,
+            "int8_launches_replayed": sum(replays[key] * per_graph[key]
+                                          for key in replays),
+            "int8_launches_wrapper": int8_wrapper_launches,
+            "int8_launches_per_decode_step": per_step}
+
+
+def serve_through_graphs(engine, prompts, new, vocab) -> dict:
+    """Warms the engine with one short request, then serves ``prompts``
+    concurrently: every decode block of the traffic must be a graph replay
+    (no decode step run by Python). Then one sampled request (temperature
+    1, seed 5) twice: the same tokens both times."""
+    engine.generate(prompts[0][:64], max_new_tokens=4)  # warm-up
+    with eager_decode_steps() as eager:
+        results, stamps = _serve_concurrently(engine, prompts, new)
+    stats = engine.stats()
+    kw = dict(max_new_tokens=16, temperature=1.0, seed=5)
+    sampled = [engine.generate(prompts[1][:100], **kw) for _ in range(2)]
+    check(stats["graph_replays"] > 0 and eager[0] == 0,
+          f"serving ran {eager[0]} eager decode steps, "
+          f"{stats['graph_replays']} graph replays")
+    check(sampled[0] == sampled[1]
+          and all(0 <= t < vocab for t in sampled[0]),
+          f"temperature-1 requests differ: {sampled}")
+    return {**serve_metrics(results, stamps, new, vocab),
+            "decode_steps": stats["steps"],
+            "graph_replays_total": stats["graph_replays"],
+            "eager_decode_steps_in_traffic": eager[0],
+            "sampled_tokens_equal_twice": True,
+            "sampled_differs_from_greedy":
+            sampled[0] != engine.generate(prompts[1][:100],
+                                          max_new_tokens=16)}
+
+
+def check_hash_bits_cpu_equals_cuda(vocab: int) -> dict:
+    """The sampler's integer bits for the same (seed, count) pairs must be
+    equal on the CPU and on the card."""
+    from ray_tpu_torch.models.generation import _hash_bits
+
+    seeds = torch.tensor([0, 1, 7, -3, 2 ** 31 + 5, 123456789, 5, 5])
+    counts = torch.tensor([0, 1, 2, 3, 4, 1000, 0, 1])
+    cpu = _hash_bits(seeds, counts, vocab)
+    card = _hash_bits(seeds.cuda(), counts.cuda(), vocab).cpu()
+    check(torch.equal(cpu, card), "hash bits differ between CPU and CUDA")
+    return {"pairs": len(seeds), "vocab": vocab, "equal": True}
 
 
 def serve_metrics(results, stamps, new: int, vocab: int) -> dict:
@@ -778,26 +1121,31 @@ def fp32_engine_equals_generate(params, cfg, rng) -> None:
 
 def phase_serve(params, cfg) -> dict:
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import int8_matmul as im
     from ray_tpu_torch.serve.llm import LLMEngine
 
     rng = np.random.default_rng(SEED + 1)
     new = 32
     lens = rng.integers(64, 501, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-    fa.launches = 0
+    fa.launches = im.launches = 0
     engine = LLMEngine(params, cfg, max_slots=8, max_len=1024,
                        prefill_buckets=(128, 512))
     try:
-        engine.generate(prompts[0][:64], max_new_tokens=4)  # warm-up
-        results, stamps = _serve_concurrently(engine, prompts, new)
-        steps = engine.stats()["steps"]
+        traffic = serve_through_graphs(engine, prompts, new, cfg.vocab_size)
+        graphs = graph_stats(engine, im.launches)
     finally:
         engine.shutdown()
-    out = {"phase": "serve", "prompt_lens": lens.tolist(),
-           **serve_metrics(results, stamps, new, cfg.vocab_size),
-           "decode_steps": steps, "flash_launches": fa.launches}
+    out = {"phase": "serve", "prompt_lens": lens.tolist(), **traffic,
+           **graphs, "flash_launches": fa.launches}
+    check(graphs["int8_launches_per_decode_step"] == 0,
+          "bf16 weights launch no int8 kernel")
     del engine
+    torch.cuda.empty_cache()
+    out["decode_block_graph_profile"] = graph_decode_profile(params, cfg, rng)
     out["decode_block_profile"] = decode_profile(params, cfg, rng)
+    out["hash_bits_cpu_equals_cuda"] = check_hash_bits_cpu_equals_cuda(
+        cfg.vocab_size)
     torch.cuda.empty_cache()
 
     # float32, TF32 off: the engine's greedy tokens must EQUAL generate's
@@ -848,28 +1196,32 @@ def dequant_ms_per_step(params, dtype) -> float:
 
 def serve_7b_traffic(params, cfg, prompts, new) -> dict:
     """bench.py's serving engine (8 slots, max_len 512, prefill bucket 128,
-    block 8 steps) answering ``prompts`` concurrently; then one profiled
-    decode block of 8 slots at a position inside that traffic."""
+    block 8 steps) answering ``prompts`` concurrently through its graphs;
+    then one decode block of 8 slots at a position inside that traffic,
+    replayed from a graph and run eagerly, each profiled."""
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import int8_matmul as im
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    fa.launches = 0
+    fa.launches = im.launches = 0
+    t0 = time.perf_counter()
     engine = LLMEngine(params, cfg, max_slots=8, max_len=512,
                        prefill_buckets=(128,), block_steps=8)
+    build_s = time.perf_counter() - t0
     try:
-        engine.generate(prompts[0][:64], max_new_tokens=4)  # warm-up
-        results, stamps = _serve_concurrently(engine, prompts, new)
-        steps = engine.stats()["steps"]
+        out = serve_through_graphs(engine, prompts, new, cfg.vocab_size)
+        out.update(graph_stats(engine, im.launches))
     finally:
         engine.shutdown()
     del engine
-    out = {**serve_metrics(results, stamps, new, cfg.vocab_size),
-           "decode_steps": steps, "flash_launches": fa.launches}
+    out.update({"engine_build_s": build_s, "flash_launches": fa.launches})
     check(fa.launches == 0, "serve_7b attends densely: no flash launch")
     torch.cuda.empty_cache()
+    at = len(prompts[0]) + new // 2
+    out["decode_block_graph_profile"] = graph_decode_profile(
+        params, cfg, np.random.default_rng(SEED + 4), pos=at, max_len=512)
     out["decode_block_profile"] = decode_profile(
-        params, cfg, np.random.default_rng(SEED + 4), pos=len(prompts[0])
-        + new // 2, max_len=512)
+        params, cfg, np.random.default_rng(SEED + 4), pos=at, max_len=512)
     torch.cuda.empty_cache()
     return out
 
@@ -927,11 +1279,12 @@ def phase_serve_7b() -> dict:
     out["int8_max_memory_allocated_after_init_bytes"] = (
         torch.cuda.max_memory_allocated())
     out["int8"] = serve_7b_traffic(params, cfg, prompts, new)
-    out["int8"]["dequant_ms_per_step"] = dequant_ms_per_step(params,
-                                                             cfg.dtype)
-    busy = out["int8"]["decode_block_profile"]["device_busy_ms"]
-    out["int8"]["dequant_share_of_decode_device_busy"] = (
-        out["int8"]["dequant_ms_per_step"] * 8 / busy if busy else None)
+    check(out["int8"]["int8_launches_per_decode_step"] == 6 * cfg.n_layers,
+          f"int8 weights: {out['int8']['int8_launches_per_decode_step']} "
+          f"int8_matmul launches per decode step, not {6 * cfg.n_layers}")
+    # what the kernel took off the path: the plain dequant of every weight
+    out["int8"]["plain_dequant_ms_per_step"] = dequant_ms_per_step(params,
+                                                                   cfg.dtype)
     out["int8"]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     fp32_engine_equals_generate(params, cfg, rng)
@@ -955,6 +1308,8 @@ def phase_serve_7b() -> dict:
     out["bf16_init_s"] = time.perf_counter() - t0
     out["bf16_weight_bytes"] = weight_bytes(params)
     out["bf16"] = serve_7b_traffic(params, cfg, prompts, new)
+    check(out["bf16"]["int8_launches_per_decode_step"] == 0,
+          "bf16 weights launch no int8 kernel")
     out["bf16"]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     with torch.inference_mode():
         ip, icfg = prepare_for_inference(params, cfg)
@@ -1002,6 +1357,7 @@ def main(argv) -> int:
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
+    int8 = phase_int8_kernel()
     if argv == ["kernel"]:
         print(smi, flush=True)
         return 0
@@ -1013,9 +1369,10 @@ def main(argv) -> int:
     phase_serve(params, cfg)
     del params
     torch.cuda.empty_cache()
-    phase_serve_7b()
+    s7 = phase_serve_7b()
     print(smi, flush=True)
     per_step = train["launches_per_step"]
+    int8_step = int8["decode_step"]
     main_bwd = kernel["bwd_cases"][0]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -1046,6 +1403,17 @@ def main(argv) -> int:
          "bound_ms": kernel["bwd_dkv_bound_ms"],
          "bound_by": kernel["bwd_dkv_bound_by"],
          "library_ms": kernel["bwd_library_ms"]},
+        # per serve_7b decode step: 6 products per layer at M 8, 32 layers
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/int8_matmul.cu",
+         "replaces": "ray_tpu/models/quant.py:43 (XLA fusion)",
+         "launches": s7["int8"]["int8_launches_per_decode_step"],
+         "launches_in_traffic": s7["int8"]["int8_launches_replayed"],
+         "max_abs_err": int8["serve_7b_max_abs_err"],
+         "ms": int8_step["kernel_ms"], "plain_ms": int8_step["plain_ms"],
+         "bound_ms": int8_step["bound_ms"],
+         "bound_by": int8_step["bound_by"],
+         "library_ms": int8_step["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

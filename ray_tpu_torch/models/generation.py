@@ -4,8 +4,11 @@ Port of ``ray_tpu/models/generation.py``. ``prefill`` runs the prompt through
 the stack once while writing K/V into a fixed-shape cache, ``decode_step``
 extends by one token attending over the cache, and ``generate`` chains them
 with greedy or temperature sampling. The continuous-batching primitives
-(``decode_step_multi``, ``decode_block``, ``prefill_into_slot``,
-``_sample_vec``) serve ``serve/llm.py``'s engine.
+(``decode_step_multi``, ``decode_block`` / ``decode_block_into``,
+``prefill_into_slot``, ``_sample_vec``) serve ``serve/llm.py``'s engine,
+which captures them in CUDA graphs: they take all state as device tensors and
+never sync with the host (no ``.item()``, no boolean-mask indexing, no
+numpy).
 
 Where JAX donates the cache and rebuilds it, the port writes it in place:
 every function that takes ``cache`` updates its tensors and returns the same
@@ -16,9 +19,8 @@ here is the dense masked form, as in JAX (no Pallas kernel on this path).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
@@ -174,49 +176,100 @@ def decode_step_multi(params, token, cache, pos, config: TransformerConfig):
     return lm_head(params, x[:, 0], c), cache
 
 
-def _slot_seed(seed: int, count: int) -> int:
-    return (int(seed) * 1_000_003 + int(count)) % (1 << 63)
+# ---------------- on-device sampling ----------------
+# The counterpart of ``jax.random.fold_in(jax.random.key(seed), count)`` and
+# ``jax.random.gumbel`` in ``_sample_vec`` (ray_tpu/models/generation.py:
+# 293-306): a counter-based hash of (seed, count, vocab index) in integer
+# tensor ops, so a draw is a pure function of its inputs (deterministic per
+# (seed, count), and capturable in a CUDA graph). Values are held in int64 in
+# [0, 2^32); torch's int64 ``>>`` is arithmetic and its overflow is not
+# defined, so every product stays below 2^49 and every result is masked.
+_MASK32 = 0xFFFFFFFF
 
 
-def _gumbel(shape, generator: torch.Generator) -> torch.Tensor:
-    noise = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    return -noise.exponential_(generator=generator).log()
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) and a 32-bit constant
+    ``c``, from two products below 2^48."""
+    lo = a * (c & 0xFFFF)
+    hi = (a * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
 
 
-def _sample_vec(logits, temps: Sequence[float], seeds: Sequence[int],
-                counts: Sequence[int]):
-    """Per-slot sampling: greedy where temps <= 0, Gumbel-max categorical
-    elsewhere, deterministic per (seed, count). ``temps``, ``seeds`` and
-    ``counts`` are host values (the engine keeps them on the host, so no
-    sample waits on the device). The random bits differ from JAX's; only
-    greedy output is held to parity."""
-    out = torch.argmax(logits, dim=-1)
-    for i, t in enumerate(temps):
-        if t > 0:
-            gen = torch.Generator(device=logits.device)
-            gen.manual_seed(_slot_seed(seeds[i], counts[i]))
-            g = _gumbel(logits.shape[-1], gen)
-            out[i] = torch.argmax(logits[i].float() / max(float(t), 1e-6) + g)
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer on values in [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _hash_bits(seeds: torch.Tensor, counts: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """[B, n] int64 random bits in [0, 2^32) of (seed, count, index) for
+    seeds and counts [B]: a per-row key from seed and count, then index i of
+    the row as the i-th step of a Weyl sequence from that key, finalized
+    (splitmix's scheme at 32 bits). The same on every device."""
+    seeds = seeds.to(torch.int64) & _MASK32
+    counts = counts.to(torch.int64) & _MASK32
+    key = _fmix32(_fmix32(seeds) ^ _mul32(counts, 0x85EBCA77))
+    idx = _mul32(torch.arange(n, dtype=torch.int64, device=seeds.device),
+                 0x9E3779B9)
+    return _fmix32((key[:, None] + idx[None, :]) & _MASK32)
+
+
+def _gumbel_noise(seeds, counts, n: int) -> torch.Tensor:
+    """[B, n] fp32 standard Gumbel noise from ``_hash_bits``: the top 24
+    bits as a uniform in (0, 1), then -log(-log(u))."""
+    u = ((_hash_bits(seeds, counts, n) >> 8).float() + 0.5) * 2.0 ** -24
+    return -torch.log(-torch.log(u))
+
+
+def _sample_vec(logits: torch.Tensor, temps: torch.Tensor,
+                seeds: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Per-slot sampling on the device: greedy where temps <= 0, Gumbel-max
+    categorical elsewhere, deterministic per (seed, count). ``temps``
+    (fp32), ``seeds`` and ``counts`` are tensors [B] on the logits' device;
+    nothing here waits on or reads from the host. The random bits differ
+    from JAX's; only greedy output is held to parity."""
+    greedy = torch.argmax(logits, dim=-1)
+    noise = _gumbel_noise(seeds, counts, logits.shape[-1])
+    scaled = logits.float() / temps.clamp_min(1e-6)[:, None]
+    sampled = torch.argmax(scaled + noise, dim=-1)
+    return torch.where(temps <= 0, greedy, sampled)
+
+
+def decode_block_into(params, cache, token, pos, temps, seeds, counts,
+                      config: TransformerConfig, out: torch.Tensor):
+    """``out.shape[1]`` decode iterations with per-slot sampling, in place:
+    the serving engine's unit of work (one captured CUDA graph per block
+    length). ``token``, ``pos`` and ``counts`` [B] are advanced in place;
+    step i's tokens are written to ``out[:, i]`` ([B, steps], the one host
+    transfer of a block). Every input is a device tensor and nothing syncs
+    with the host. Returns ``out``."""
+    for i in range(out.shape[1]):
+        logits, cache = decode_step_multi(params, token, cache, pos, config)
+        token.copy_(_sample_vec(logits, temps, seeds, counts))
+        pos.add_(1)
+        counts.add_(1)
+        out[:, i].copy_(token)
     return out
 
 
 def decode_block(params, cache, token, pos, temps, seeds, counts,
                  config: TransformerConfig, steps: int):
-    """``steps`` decode iterations with per-slot sampling: the serving
-    engine's unit of work, fetched by the host as one [B, steps] transfer.
-    ``token``/``pos`` are device tensors [B]; ``temps``/``seeds``/``counts``
-    host arrays [B].
+    """``steps`` decode iterations (``decode_block_into`` on copies of the
+    slot state), functional as the reference's ``decode_block``
+    (ray_tpu/models/generation.py:309-330): ``token``/``pos`` [B] and
+    ``temps``/``seeds``/``counts`` [B] are device tensors, left unchanged.
 
     Returns (tokens [B, steps], cache, token', pos', counts')."""
-    counts = np.asarray(counts, np.int64)
-    toks = []
-    for _ in range(steps):
-        logits, cache = decode_step_multi(params, token, cache, pos, config)
-        token = _sample_vec(logits, temps, seeds, counts)
-        pos = pos + 1
-        counts = counts + 1
-        toks.append(token)
-    return torch.stack(toks, dim=1), cache, token, pos, counts
+    token, pos, counts = token.clone(), pos.clone(), counts.clone()
+    out = torch.empty((token.shape[0], steps), dtype=token.dtype,
+                      device=token.device)
+    decode_block_into(params, cache, token, pos, temps, seeds, counts,
+                      config, out)
+    return out, cache, token, pos, counts
 
 
 def _attend_prefill(q, ck, cv, q_pos, kv_valid_b):
@@ -225,28 +278,29 @@ def _attend_prefill(q, ck, cv, q_pos, kv_valid_b):
     return _masked_attend(q, ck, cv, mask[:, None])
 
 
-def prefill_into_slot(params, prompt, prompt_len: int, slot: int, cache,
-                      config: TransformerConfig):
+def prefill_into_slot(params, prompt, prompt_len: torch.Tensor,
+                      slot: torch.Tensor, cache, config: TransformerConfig):
     """Run ONE padded prompt [1, Sb] and write its K/V into ``slot`` of the
-    shared batch cache (Sb is a bucket size). Positions past prompt_len write
-    junk K/V that is never attended: the slot's kv_valid mask stops at its
-    position, and decode overwrites those cells before reaching them.
+    shared batch cache (Sb is a bucket size: one program per bucket).
+    ``prompt_len`` and ``slot`` are 0-d integer tensors on the prompt's
+    device, as the reference takes them, so nothing here reads the host.
+    Positions past prompt_len write junk K/V that is never attended: the
+    slot's kv_valid mask stops at its position, and decode overwrites those
+    cells before reaching them.
 
-    The slot's WHOLE [L, 1, S_max] row is rewritten, zeros past the bucket,
-    as JAX's single-slot buffer does. Returns (last-valid-token logits [V],
-    cache)."""
+    The layers write a scratch [L, 1, S_max] row, zeros past the bucket, as
+    JAX's single-slot buffer does, which then replaces the slot's WHOLE row
+    (``index_copy_`` along the slot dim). Returns (last-valid-token logits
+    [V], cache)."""
     c = config
     S = prompt.shape[1]
     s_max = cache["k"].shape[2]
-    k_row = cache["k"][:, slot:slot + 1]  # [L, 1, S_max, Hkv, D] views
-    v_row = cache["v"][:, slot:slot + 1]
-    k_row.zero_()
-    v_row.zero_()
+    rows = {key: torch.zeros_like(cache[key][:, :1]) for key in ("k", "v")}
     x = params["embed"][prompt].to(c.dtype)
     positions = torch.arange(S, device=prompt.device)
     kv_valid = (torch.arange(s_max, device=prompt.device) < prompt_len)[None]
     for li in range(c.n_layers):
-        ck, cv = k_row[li], v_row[li]
+        ck, cv = rows["k"][li], rows["v"][li]
 
         def cached_attn(q, k, v, ck=ck, cv=cv):
             ck[:, :S] = k
@@ -255,7 +309,15 @@ def prefill_into_slot(params, prompt, prompt_len: int, slot: int, cache,
 
         x, _aux = apply_layer(x, layer_params(params, li), c, positions,
                               cached_attn)
-    return lm_head(params, x[0, prompt_len - 1], c), cache
+    for key in ("k", "v"):
+        cache[key].index_copy_(1, slot.reshape(1), rows[key])
+    last = x[0].index_select(0, (prompt_len - 1).reshape(1))[0]
+    return lm_head(params, last, c), cache
+
+
+def _gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    noise = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return -noise.exponential_(generator=generator).log()
 
 
 def _sample(logits, generator: torch.Generator, temperature: float):

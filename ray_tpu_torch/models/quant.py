@@ -19,22 +19,25 @@ touches:
 - ``x[i]`` (``layer_params``) and ``x.unbind(0)`` (``unbind_layers``) slice
   ``q`` and ``s`` together, as ``lax.scan`` slices the pytree's children.
 
-The reference dequantizes inside the consuming matmul's XLA fusion, so its
-decode streams the int8 bytes only. Here the dequant is plain tensor ops
-before the matmul, which write and read back a bf16 copy of each weight
-(no Pallas kernel of the reference's does the dequant; a hand-written
-int8 matmul is future work).
+- ``.matmul(x, contract)`` is a layer's weight product: ``apply_layer``
+  sends every QTensor weight there, and it runs the hand-written int8
+  weight-only kernel (``ops/int8_matmul.py``) over the [M, K] x [K, N] views,
+  as the reference's decode reads the int8 bytes inside the consuming
+  matmul's XLA fusion. ``.to(dtype)`` stays the plain version (and the tied
+  head's path).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Tuple, Union
 
 import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.transformer import init_params
+from ray_tpu_torch.ops.int8_matmul import int8_matmul
 
 
 class QTensor:
@@ -65,6 +68,26 @@ class QTensor:
             f"QTensor.to takes a dtype (dequantize) or a device (move); got "
             f"{arg!r}"
         )
+
+    def matmul(self, x: torch.Tensor, contract: int) -> torch.Tensor:
+        """x's last ``contract`` dims against this weight's first
+        ``contract`` dims, the weight dequantized to x's dtype: the einsum
+        ``bsd,dhk->bshk`` is ``matmul(x, 1)``, ``bshk,hkd->bsd`` is
+        ``matmul(x, 2)``. One ``int8_matmul`` over x as [M, K], q as [K, N]
+        and the scale as [N]; the scale must be one per output column (size
+        1 on the contracted axes), as every rule of ``_LAYER_RULES`` makes
+        it."""
+        n_shape = tuple(self.q.shape[contract:])
+        if tuple(self.s.shape) != (1,) * contract + n_shape:
+            raise ValueError(
+                f"QTensor.matmul needs one scale per output column, shape "
+                f"{(1,) * contract + n_shape}; got {tuple(self.s.shape)}"
+            )
+        k = math.prod(self.q.shape[:contract])
+        n = math.prod(n_shape)
+        y = int8_matmul(x.reshape(-1, k), self.q.reshape(k, n),
+                        self.s.reshape(n))
+        return y.reshape(*x.shape[:-contract], *n_shape)
 
     @property
     def T(self) -> torch.Tensor:  # tied-embedding head path

@@ -285,6 +285,18 @@ def select_attn_fn(config: TransformerConfig):
     raise ValueError(f"unknown attn_impl {c.attn_impl!r}")
 
 
+def _weight_product(spec: str, x: torch.Tensor, w, dtype,
+                    contract: int = 1) -> torch.Tensor:
+    """One of a layer's weight einsums, x's last ``contract`` dims against
+    w's first. A tensor weight is cast to the compute dtype and goes
+    through ``einsum`` (training, autograd and remat see exactly that); an
+    int8 ``QTensor`` (``models/quant.py``) goes through its kernel product,
+    ``QTensor.matmul``."""
+    if isinstance(w, torch.Tensor):
+        return torch.einsum(spec, x, w.to(dtype))
+    return w.matmul(x, contract)
+
+
 def apply_layer(
     x: torch.Tensor,  # [B, S, D]
     lp: Dict,  # ONE layer's params (no leading L dim)
@@ -301,19 +313,19 @@ def apply_layer(
     if c.moe_experts:
         raise NotImplementedError("the MoE FFN is not ported yet")
     h = _rms_norm(x, lp["ln1"]["scale"])
-    q = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"].to(c.dtype))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wk"].to(c.dtype))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wv"].to(c.dtype))
+    q = _weight_product("bsd,dhk->bshk", h, lp["attn"]["wq"], c.dtype)
+    k = _weight_product("bsd,dhk->bshk", h, lp["attn"]["wk"], c.dtype)
+    v = _weight_product("bsd,dhk->bshk", h, lp["attn"]["wv"], c.dtype)
     q, k = _rotary(q, k, c.rotary_dim, positions)
     attn_out = attn_fn(q, k, v)
     if c.remat and c.remat_policy == "dots_attn":
         # The policy saves it by this name; no other policy needs the copy.
         attn_out = checkpoint_name(attn_out, "attn_out")
-    a = torch.einsum("bshk,hkd->bsd", attn_out,
-                     lp["attn"]["wo"].to(c.dtype))
-    m = torch.einsum("bsd,df->bsf", h, lp["mlp"]["wi"].to(c.dtype))
+    a = _weight_product("bshk,hkd->bsd", attn_out, lp["attn"]["wo"],
+                        c.dtype, contract=2)
+    m = _weight_product("bsd,df->bsf", h, lp["mlp"]["wi"], c.dtype)
     m = F.gelu(m, approximate="tanh")  # jax.nn.gelu's default
-    m = torch.einsum("bsf,fd->bsd", m, lp["mlp"]["wo"].to(c.dtype))
+    m = _weight_product("bsf,fd->bsd", m, lp["mlp"]["wo"], c.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + a + m, aux
 

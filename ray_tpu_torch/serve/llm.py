@@ -11,6 +11,16 @@ Port of ``ray_tpu/serve/llm.py``'s ``LLMEngine`` and ``LLMServer``:
 - finished slots free immediately and the next pending request takes the
   slot on the following iteration.
 
+The engine serves through fixed programs, as the reference does ("XLA
+compiles exactly two programs: bucketed prefill-insert and one multi-position
+decode step", ``ray_tpu/serve/llm.py:9-12``). On CUDA each program is a CUDA
+graph captured once in the constructor (``_warm_blocks``): one per decode
+block length and one prefill-insert per bucket, all in one memory pool. The
+slot state (next token, position, temperature, seed, sample count) lives on
+the device, sampling runs on the device, and serving only copies inputs into
+the graphs' static buffers and replays them. On the CPU (the tests' path,
+taken only when the caller asks for it) the same programs run eagerly.
+
 Device work is queued on the engine thread's CUDA stream and the host reads
 results through copies that an event marks done, so the one wait per block
 covers that block alone: block k + 1 is queued before block k's tokens are
@@ -20,6 +30,8 @@ read (pipeline depth 1), and the device never waits on the host.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import queue
 import threading
 from typing import Callable, List, Optional
@@ -30,12 +42,13 @@ import torch
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.generation import (
     _sample_vec,
-    decode_block,
+    decode_block_into,
     init_kv_cache,
     prefill_into_slot,
     prepare_for_inference,
 )
 from ray_tpu_torch.models.transformer import tree_map
+from ray_tpu_torch.ops import int8_matmul
 
 _END = object()
 
@@ -57,9 +70,12 @@ class _Request:
 
 def _to_host_async(t: torch.Tensor):
     """Starts a device->host copy of ``t`` behind the work queued so far;
-    returns (host tensor, event that marks it done; None on the CPU)."""
+    returns (host tensor, event that marks it done; None on the CPU). ``t``
+    may be a program's static buffer, which the program's next run
+    overwrites: on the CPU the copy is a clone, on CUDA it is queued before
+    that run."""
     if t.device.type != "cuda":
-        return t, None
+        return t.clone(), None
     host = t.to("cpu", non_blocking=True)
     done = torch.cuda.Event()
     # the copy runs on the current stream of t's device, which need not be
@@ -72,6 +88,27 @@ def _host_values(host: torch.Tensor, done) -> np.ndarray:
     if done is not None:
         done.synchronize()
     return host.numpy()
+
+
+def _prefill_program(params, args, temp, cache, tok, pos, temps, seeds,
+                     counts, config):
+    """The engine's prefill-insert program for one bucket: the reference's
+    ``prefill_into_slot``, its first-token sample (``_first_token``,
+    ``ray_tpu/serve/llm.py:245-258``) and the slot writes (``:235-241``),
+    all on the device. ``args`` is int64 [bucket + 3]: the padded prompt,
+    then its length, the slot and the seed; ``temp`` is fp32 [1]. The first
+    token lands in ``tok`` at the slot."""
+    b = args.shape[0] - 3
+    prompt_len, slot, seed = args[b], args[b + 1], args[b + 2:]
+    logits, _ = prefill_into_slot(params, args[:b].view(1, b), prompt_len,
+                                  slot, cache, config)
+    idx = slot.reshape(1)
+    first = _sample_vec(logits[None], temp, seed, torch.zeros_like(idx))
+    tok.index_copy_(0, idx, first)
+    pos.index_copy_(0, idx, prompt_len.reshape(1))
+    temps.index_copy_(0, idx, temp)
+    seeds.index_copy_(0, idx, seed)
+    counts.index_fill_(0, idx, 1)
 
 
 class LLMEngine:
@@ -116,25 +153,102 @@ class LLMEngine:
         self.pipeline = pipeline
         self.cache = init_kv_cache(config, max_slots, max_len,
                                    device=self.device)
-        # device-side slot state: next token and its absolute position
-        self.tok = torch.zeros(max_slots, dtype=torch.long, device=self.device)
-        self.pos = torch.zeros(max_slots, dtype=torch.long, device=self.device)
-        # host-side slot state: sampling temperature, seed, sample counter
-        self.temps = np.zeros(max_slots, np.float32)
-        self.seeds = np.zeros(max_slots, np.int64)
-        self.counts = np.zeros(max_slots, np.int64)
+        dev = self.device
+        # device-side slot state, as the reference keeps it (:102-106): next
+        # token, its absolute position, sampling temperature, seed, sample
+        # counter. Updated in place only: the programs hold these tensors.
+        self.tok = torch.zeros(max_slots, dtype=torch.long, device=dev)
+        self.pos = torch.zeros(max_slots, dtype=torch.long, device=dev)
+        self.temps = torch.zeros(max_slots, dtype=torch.float32, device=dev)
+        self.seeds = torch.zeros(max_slots, dtype=torch.long, device=dev)
+        self.counts = torch.zeros(max_slots, dtype=torch.long, device=dev)
+        # the programs and their static inputs and outputs: a decode block's
+        # tokens [B, K] per length K; per bucket, the padded prompt, its
+        # length, slot and seed; the admitted request's temperature
+        self._state = state = (self.tok, self.pos, self.temps, self.seeds,
+                               self.counts)
+        self._block_out = {}
+        self._prefill_args = {}
+        self._prefill_temp = torch.zeros(1, dtype=torch.float32, device=dev)
+        self._programs = {}
+        for k in sorted({self.burst_block_steps, self.block_steps}):
+            self._block_out[k] = torch.zeros((max_slots, k), dtype=torch.long,
+                                             device=dev)
+            self._programs[("decode", k)] = functools.partial(
+                decode_block_into, self.params, self.cache, *state,
+                self.config, self._block_out[k])
+        for b in self.buckets:
+            self._prefill_args[b] = torch.zeros(b + 3, dtype=torch.long,
+                                                device=dev)
+            self._programs[("prefill", b)] = functools.partial(
+                _prefill_program, self.params, self._prefill_args[b],
+                self._prefill_temp, self.cache, *state, self.config)
+        self._graphs = {}  # CUDA: program key -> its captured CUDAGraph
+        # observability: replays per graph, and int8_matmul kernel launches
+        # recorded in each graph (each replay launches them again)
+        self.graph_replays = dict.fromkeys(self._programs, 0)
+        self.graph_int8_launches = {}
         # host-side slot table
         self.slot_req: List[Optional[_Request]] = [None] * max_slots
         self.pending: "collections.deque[_Request]" = collections.deque()
-        self._pending_first: List = []  # (req, device first-token scalar)
+        self._pending_first: List = []  # (req, slot) admitted, not emitted
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._stop = False
         self._failure: Optional[BaseException] = None
         self._steps = 0  # decode iterations (observability)
+        self._warm_blocks()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
+
+    def _warm_blocks(self):
+        """Builds every program before the engine takes traffic, as the
+        reference compiles both block lengths (``:128-140``): on CUDA it
+        captures one graph per decode block length and per prefill bucket,
+        all in one memory pool (they never run at once), after a warm-up run
+        on a side stream; a failed capture raises. On the CPU each program
+        runs once. The warm-up prefills a 1-token prompt into slot 0 and the
+        warm-up decode writes rows 0..K-1 of every slot; the state reset
+        below and prefill's whole-row rewrite make that invisible."""
+        for b, args in self._prefill_args.items():
+            args[b] = 1  # prompt length 1 (slot 0, seed 0)
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                for program in self._programs.values():
+                    program()
+            else:
+                self._capture_graphs()
+        for t in self._state:
+            t.zero_()
+
+    def _capture_graphs(self):
+        dev = self.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for program in self._programs.values():
+                    program()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            pool = torch.cuda.graph_pool_handle()
+            for key, program in self._programs.items():
+                graph = torch.cuda.CUDAGraph()
+                before = int8_matmul.launches
+                with torch.cuda.graph(graph, pool=pool):
+                    program()
+                self.graph_int8_launches[key] = int8_matmul.launches - before
+                self._graphs[key] = graph
+            torch.cuda.synchronize(dev)
+
+    def _run(self, key):
+        """Runs one program: its graph's replay on CUDA, the program itself
+        on the CPU."""
+        if self.device.type == "cuda":
+            self._graphs[key].replay()
+            self.graph_replays[key] += 1
+        else:
+            self._programs[key]()
 
     # -- public --
 
@@ -189,6 +303,7 @@ class LLMEngine:
                 "steps": self._steps,
                 "active": sum(r is not None for r in self.slot_req),
                 "pending": len(self.pending),
+                "graph_replays": sum(self.graph_replays.values()),
             }
 
     def shutdown(self):
@@ -220,22 +335,20 @@ class LLMEngine:
             if req.cancelled:
                 continue
             n = len(req.prompt)
-            padded = np.zeros((1, self._bucket_for(n)), np.int64)
-            padded[0, :n] = req.prompt
-            prompt = torch.from_numpy(padded).to(self.device,
-                                                 non_blocking=True)
-            logits, self.cache = prefill_into_slot(
-                self.params, prompt, n, free, self.cache, self.config,
-            )
-            first = _sample_vec(logits[None], [req.temperature], [req.seed],
-                                [0])[0]
-            self.tok[free] = first
-            self.pos[free] = n
-            self.temps[free] = req.temperature
-            self.seeds[free] = req.seed
-            self.counts[free] = 1
+            b = self._bucket_for(n)
+            args = np.zeros(b + 3, np.int64)
+            args[:n] = req.prompt
+            args[b:] = (n, free, req.seed)
+            host = torch.from_numpy(args)
+            if self.device.type == "cuda":
+                # pinned, so the copy queues behind the running block without
+                # stalling the host
+                host = host.pin_memory()
+            self._prefill_args[b].copy_(host, non_blocking=True)
+            self._prefill_temp.fill_(req.temperature)
+            self._run(("prefill", b))
             self.slot_req[free] = req
-            self._pending_first.append((req, first))
+            self._pending_first.append((req, free))
 
     def _emit(self, req: Optional[_Request], token: int) -> bool:
         """Deliver one token to a request; True if the request finished."""
@@ -254,13 +367,13 @@ class LLMEngine:
         return done
 
     def _stage_firsts(self):
-        """Queues the host copy of the admitted requests' first tokens BEFORE
-        the next block, so reading them waits on the prefills only."""
+        """Queues the host copy of the slots' next tokens, which hold the
+        admitted requests' first tokens, BEFORE the next block overwrites
+        them, so reading them waits on the prefills only."""
         firsts, self._pending_first = self._pending_first, []
         if not firsts:
             return None
-        vals = torch.stack([t for _, t in firsts])
-        return [req for req, _ in firsts], _to_host_async(vals)
+        return firsts, _to_host_async(self.tok)
 
     def _dispatch_block(self):
         """Queue one K-step decode block; returns its tokens' pending host
@@ -275,13 +388,10 @@ class LLMEngine:
             if active > self.max_slots // 2
             else self.burst_block_steps
         )
-        toks, self.cache, self.tok, self.pos, self.counts = decode_block(
-            self.params, self.cache, self.tok, self.pos, self.temps,
-            self.seeds, self.counts, self.config, steps,
-        )
+        self._run(("decode", steps))
         self._steps += steps
         snapshot = list(self.slot_req)  # slot -> req at dispatch
-        return _to_host_async(toks), snapshot
+        return _to_host_async(self._block_out[steps]), snapshot
 
     def _retire_firsts(self, staged):
         """Emit admitted requests' first tokens. Called right after the next
@@ -289,9 +399,10 @@ class LLMEngine:
         only on the prefills while the block keeps the device busy."""
         if staged is None:
             return
-        reqs, pending = staged
-        for req, v in zip(reqs, _host_values(*pending)):
-            self._emit(req, int(v))
+        firsts, pending = staged
+        toks = _host_values(*pending)
+        for req, slot in firsts:
+            self._emit(req, int(toks[slot]))
 
     def _retire_block(self, pending, snapshot):
         """Wait for one block's tokens and deliver them in step order."""
@@ -312,9 +423,12 @@ class LLMEngine:
     def _loop(self):
         inflight: "collections.deque" = collections.deque()
         depth = 1 if self.pipeline else 0
+        on_card = (torch.cuda.device(self.device)
+                   if self.device.type == "cuda" else contextlib.nullcontext())
         try:
-            # grad mode is per thread: the engine thread sets its own
-            with torch.inference_mode():
+            # grad mode and the current device are per thread: the engine
+            # thread sets its own
+            with torch.inference_mode(), on_card:
                 while not self._stop:
                     self._admit()
                     active = any(r is not None and not r.finished

@@ -1,8 +1,8 @@
 """The ctypes boundary of the port's CUDA kernels, checked on the CPU.
 
 Every ``extern "C"`` function in ``ray_tpu_torch/ops/csrc/*.cu`` is parsed
-and held against its ``_ARGTYPES`` entry in ``ops/flash_attention.py``: the
-parameter count and each type (pointer -> c_void_p, int -> c_int, long long
+and held against its ``_ARGTYPES`` entry in ``ops/flash_attention.py`` or
+``ops/int8_matmul.py``: the parameter count and each type (pointer -> c_void_p, int -> c_int, long long
 -> c_int64, float -> c_float). A mismatch would truncate a pointer or shift
 every later argument on the card, and nothing else here would show it.
 Then ``_kernel_operand``'s TMA rules on CPU tensors, and how a launch's
@@ -17,8 +17,10 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import int8_matmul as im
 
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
+ARGTYPES = {**fa._ARGTYPES, **im._ARGTYPES}
 _EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
 
 
@@ -45,16 +47,25 @@ EXTERN = _extern_functions()
 
 def test_every_extern_function_has_argtypes_and_no_more():
     assert EXTERN, "no extern \"C\" function found under csrc/"
-    assert set(EXTERN) == set(fa._ARGTYPES)
+    assert set(EXTERN) == set(ARGTYPES)
+    assert ("int8_matmul", "int8_matmul") in EXTERN
 
 
 @pytest.mark.parametrize("key", sorted(EXTERN), ids=lambda k: "/".join(k))
 def test_argtypes_match_the_c_signature(key):
     want = EXTERN[key]
-    got = fa._ARGTYPES[key]
+    got = ARGTYPES[key]
     assert len(got) == len(want), (key, len(got), len(want))
     for i, (g, w) in enumerate(zip(got, want)):
         assert g is w, f"{key} parameter {i}: argtypes {g}, C {w}"
+
+
+def test_int8_matmul_passes_pointers_and_the_stream_as_pointers():
+    """x, q, s, y and the stream are 64-bit pointers; a c_int there would
+    cut them to 32 bits."""
+    got = im._ARGTYPES[("int8_matmul", "int8_matmul")]
+    assert [got[i] for i in (0, 1, 2, 3, 8)] == [ctypes.c_void_p] * 5
+    assert got[4:8] == [ctypes.c_int] * 4  # dtype, M, K, N
 
 
 def test_the_parser_reads_pointer_and_integer_widths():

@@ -166,3 +166,95 @@ def test_host_copy_event_is_recorded_on_the_tensors_device(monkeypatch):
     host, done = llm._to_host_async(OnCuda1())
     assert isinstance(done, FakeEvent) and host.shape == (2,)
     assert recorded == [("stream of", torch.device("cuda", 1))]
+
+
+def test_engine_serves_through_fixed_programs_on_device_state():
+    """The engine's programs: one decode block per length, one prefill per
+    bucket. Its slot state is device tensors (next token, position,
+    temperature, seed, count), updated in place (the captured graphs hold
+    those tensors); on the CPU nothing is replayed."""
+    _, tcfg, _, tp = _tiny_fp32()
+    eng = LLMEngine(tp, tcfg, max_slots=2, max_len=64,
+                    prefill_buckets=(16, 32), device="cpu")
+    try:
+        assert set(eng._programs) == {("decode", 2), ("decode", 8),
+                                      ("prefill", 16), ("prefill", 32)}
+        state = (eng.tok, eng.pos, eng.temps, eng.seeds, eng.counts)
+        assert [t.dtype for t in state] == [torch.long, torch.long,
+                                            torch.float32, torch.long,
+                                            torch.long]
+        assert not any(t.any() for t in state)  # reset after the warm-up
+        out = eng.generate(np.arange(1, 9), max_new_tokens=5,
+                           temperature=0.5, seed=3)
+        assert len(out) == 5
+        assert all(a is b for a, b in zip(state, (eng.tok, eng.pos,
+                                                  eng.temps, eng.seeds,
+                                                  eng.counts)))
+        assert eng.stats()["graph_replays"] == 0
+        assert eng.stats()["steps"] > 0
+    finally:
+        eng.shutdown()
+
+
+def test_prefill_program_writes_the_slot_state():
+    """The prefill-insert program samples the first token on the device and
+    writes token, position, temperature, seed and count at its slot only."""
+    from ray_tpu_torch.models import generation as tgen
+    from ray_tpu_torch.serve import llm
+
+    _, tcfg, _, tp = _tiny_fp32()
+    cache = tgen.init_kv_cache(tcfg, 3, 64, device="cpu")
+    tok, pos, seeds, counts = (torch.full((3,), 9) for _ in range(4))
+    temps = torch.full((3,), 0.25)
+    prompt = np.arange(1, 7)
+    args = torch.zeros(16 + 3, dtype=torch.long)
+    args[:6] = torch.from_numpy(prompt)
+    args[16:] = torch.tensor([6, 1, 42])  # length, slot, seed
+    llm._prefill_program(tp, args, torch.zeros(1), cache, tok, pos, temps,
+                         seeds, counts, tcfg)
+    logits = ttf.forward(tp, torch.from_numpy(prompt)[None], tcfg)[0, -1]
+    assert tok.tolist() == [9, int(torch.argmax(logits)), 9]
+    assert pos.tolist() == [9, 6, 9] and counts.tolist() == [9, 1, 9]
+    assert seeds.tolist() == [9, 42, 9] and temps.tolist() == [0.25, 0.0, 0.25]
+
+
+def test_cpu_host_copy_is_a_snapshot():
+    """A program's static output is overwritten by its next run: on the CPU
+    the host copy must be a clone taken at once."""
+    from ray_tpu_torch.serve import llm
+
+    t = torch.arange(4)
+    host, done = llm._to_host_async(t)
+    t.add_(10)
+    assert done is None and llm._host_values(host, done).tolist() == [0, 1,
+                                                                      2, 3]
+
+
+def test_cuda_engine_never_falls_back_to_eager_programs(monkeypatch):
+    """On CUDA the programs only ever run as captured graphs: a capture
+    that fails raises out of ``_warm_blocks`` (so out of the constructor)
+    with no eager run in its place, and a program with no graph raises
+    rather than running eagerly. The CPU has no card, so an engine built on
+    the CPU is pointed at a CUDA device descriptor after construction."""
+    _, tcfg, _, tp = _tiny_fp32()
+    eng = LLMEngine(tp, tcfg, max_slots=2, max_len=64,
+                    prefill_buckets=(16,), device="cpu")
+    try:
+        ran = []
+        for key in eng._programs:
+            eng._programs[key] = lambda key=key: ran.append(key)
+
+        def failed_capture():
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+
+        monkeypatch.setattr(eng, "_capture_graphs", failed_capture)
+        eng.device = torch.device("cuda", 0)
+        with pytest.raises(RuntimeError, match="capturing"):
+            eng._warm_blocks()
+        with pytest.raises(KeyError):
+            eng._run(("decode", 8))
+        assert ran == []
+    finally:
+        eng.device = torch.device("cpu")
+        eng.shutdown()

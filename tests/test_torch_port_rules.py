@@ -48,7 +48,8 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
     may be loaded."""
     mods = _port_modules() + ["chip_smoke"]
     assert {"ray_tpu_torch.serve.llm",
-            "ray_tpu_torch.parallel.train_step"} <= set(mods)
+            "ray_tpu_torch.parallel.train_step",
+            "ray_tpu_torch.ops.int8_matmul"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -62,6 +63,12 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
                           env=_no_cuda_env(), capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_scan_covers_every_kernel_module():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"ray_tpu_torch/ops/int8_matmul.py",
+            "ray_tpu_torch/ops/flash_attention.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
