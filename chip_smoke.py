@@ -25,7 +25,9 @@ kernel (or the serving path) changes, under ``timeout``.
    and at ``tiny``'s widths; every case also bit-equal across two launches
    and with row 0 computed alone. Device times inside CUDA graphs (kernel,
    plain version, ``torch._weight_int8pack_mm``, a bf16 product over
-   pre-dequantized weights) per shape and per decode step.
+   pre-dequantized weights) per shape, per decode step and per prefill;
+   ptxas's registers and spills of the int8 kernels, and each shape's
+   launch plan (K split, ring stages, wgmma N, workspace).
 3. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
@@ -68,7 +70,8 @@ kernel (or the serving path) changes, under ``timeout``.
 
 Prints one JSON line per phase, the card's name and power limit (as
 nvidia-smi reports them), a ``kernels`` JSON line (four kernels; the int8
-kernel's numbers are per serve_7b decode step), and as its last line
+kernel's numbers are per serve_7b decode step, with its per-prefill time
+and bound beside them), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports no JAX and nothing of the JAX package.
 """
@@ -615,9 +618,12 @@ def phase_int8_kernel() -> dict:
     """``int8_matmul`` (built by the kernel phase) against its plain version
     at every int8 weight shape of serve_7b, at decode's and prefill's M, in
     bf16 and fp32; at ragged M; at ``tiny``'s widths. Device times inside
-    CUDA graphs at serve_7b's shapes, bf16, and per decode step (a layer's
-    six products times its 32 layers)."""
+    CUDA graphs at serve_7b's shapes, bf16, per decode step and per
+    prefill (a layer's six products at M 8 and at M 128, times its 32
+    layers); ptxas's report of the int8 kernels and each shape's launch
+    plan."""
     from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.ops import build
     from ray_tpu_torch.ops import int8_matmul as im
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -646,19 +652,32 @@ def phase_int8_kernel() -> dict:
         times = {(k, n, m): int8_times(im, gen, m, k, n, torch.bfloat16)
                  for (k, n), m in itertools.product(distinct, INT8_MS)}
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-    per_step = {}
-    for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
-                "dequantized_matmul_ms"):
-        vals = [times[(k, n, INT8_MS[0])][key] for k, n in shapes.values()]
-        per_step[key] = (None if None in vals
-                         else cfg.n_layers * float(sum(vals)))
+
+    def per_step(m) -> dict:
+        """A layer's six products at M ``m``, times its layers: the
+        kernel's share of a decode step (M 8) or of a prefill (M 128)."""
+        out = {"m": m, "layers": cfg.n_layers, "launches": 6 * cfg.n_layers}
+        for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                    "dequantized_matmul_ms"):
+            vals = [times[(k, n, m)][key] for k, n in shapes.values()]
+            out[key] = (None if None in vals
+                        else cfg.n_layers * float(sum(vals)))
+        out["bound_share"] = out["bound_ms"] / out["kernel_ms"]
+        return out
+
+    # each serve_7b shape's bf16 launch: K split, ring, wgmma N, workspace
+    plans = [{"m": m, "k": k, "n": n, **dataclasses.asdict(im.launch_plan(
+        m, k, n, im._sms(torch.device("cuda"))))}
+        for (k, n), m in itertools.product(distinct, INT8_MS)]
     out = {"phase": "int8_kernel", "cases": cases,
            "serve_7b_max_abs_err": serve_7b_err,
            "bf16_round_rtol": INT8_BF16_ROUND,
+           "ptxas": [r for r in ptxas_report(build.BUILD_LOGS)
+                     if r["library"] == "int8_matmul"],
+           "plans": plans,
            "times": list(times.values()),
-           "decode_step": {"m": INT8_MS[0], "layers": cfg.n_layers,
-                           "launches": 6 * cfg.n_layers, **per_step,
-                           "bound_by": "bytes"}}
+           "decode_step": {**per_step(INT8_MS[0]), "bound_by": "bytes"},
+           "prefill_step": per_step(INT8_MS[1])}
     check(all(times[(k, n, INT8_MS[0])]["bound_by"] == "bytes"
               for k, n in distinct), "decode products are bound by bytes")
     emit(out)
@@ -1413,7 +1432,10 @@ def main(argv) -> int:
          "ms": int8_step["kernel_ms"], "plain_ms": int8_step["plain_ms"],
          "bound_ms": int8_step["bound_ms"],
          "bound_by": int8_step["bound_by"],
-         "library_ms": int8_step["library_ms"]},
+         "library_ms": int8_step["library_ms"],
+         # per serve_7b prefill: the same products at M 128
+         "prefill_ms": int8["prefill_step"]["kernel_ms"],
+         "prefill_bound_ms": int8["prefill_step"]["bound_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,96 +14,131 @@
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16). Decoding 8
 // slots, a weight's bytes dominate: 16.8 MB of int8 for a 4096 x 4096 weight
 // (5.0 us), 67.1 MB for a 4096 x 16384 MLP weight (20.0 us); a serve_7b decode
-// step reads 6.44 GB of them, 1.92 ms. So the design streams q (and x)
-// through shared memory with cp.async, which holds no registers while the
-// copies are in flight:
+// step reads 6.44 GB of them, 1.92 ms. Prefilling 128 rows, the tensor cores'
+// time (2 M K N operations) is about the bytes' time. The bf16 design:
 //
-// - A block owns 32 output columns and 16 * MT rows of x (MT 1, 2 or 4 by M),
-//   and its warps split K into equal contiguous ranges (8 warps where K / 64
-//   allows, else 4, 2 or 1: the split depends on K alone). Each warp streams
-//   its range in stages of 64 k rows through a two-stage ring of its own in
-//   shared memory (one stage copied while the other is computed): a stage is
-//   the q tile [64, 32] and the x tile [16 MT, 64], copied with 16-byte
-//   cp.async, rows of x past M zero-filled. At MT 1 a block's ring is 86 KB,
-//   so two blocks share an SM (deeper rings, one block per SM, were no
-//   faster at N 4096 and slower at N 16384, where they ran in four waves).
-//   Rows are padded (q to 48 bytes, x to 144) so that the fragment loads
-//   below hit 32 distinct banks.
-// - bf16 tensor cores through mma.sync m16n8k16. A thread's 32-bit word of a
-//   q row holds columns 4g..4g+3 of the block (g = lane / 4), and the B
-//   fragment of m16n8k16 wants, from each thread, k pairs of one column g:
-//   so mma j of the four takes column 4g + j of the block as its column g,
-//   and the epilogue maps the accumulators back. Each weight is dequantized
-//   in registers as the plain version rounds it, bf16(bf16(q) * bf16(s)),
-//   so the kernel multiplies the plain version's weights bit for bit and
-//   only the order of the sums differs. The dequant uses full-rate
-//   instructions only (byte permutes, an fp32 subtraction, a bf16x2
-//   multiply): int-to-float and float-to-bf16 conversions issue at a
-//   fraction of that rate, and at 1.5 of them per weight they, not the
-//   memory, set the time of an earlier version of this kernel.
+// - Swap AB: y^T = w^T x^T on wgmma. A block owns 128 output columns (a
+//   128-byte-wide strip of q, so every row request is a whole line) and up
+//   to 128 rows of x; a consumer warpgroup computes them as two m64 tiles
+//   whose A operand is the weight, dequantized in registers, and whose B
+//   operand is x from shared memory (K-major, wgmma's N = M rounded up to 8,
+//   16, 32, 64 or 128). q is read and dequantized once for all of those
+//   rows: decoding 8 slots pads no row, prefilling 128 rows takes one
+//   instruction per tile and k step. Above 128 rows, blocks tile M.
+// - The A fragment wants, from each thread, k pairs of one column; a 32-bit
+//   word of a q row holds 4 columns. Thread (warp w, g = lane / 4, t = lane
+//   % 4) reads the word of columns 32w + 4g .. +3 in k rows 2t, 2t + 1,
+//   2t + 8, 2t + 9 of a k step, which is the fragment of rows 16w + g and
+//   16w + g + 8 of both tiles: tile T's row 16w + g is column 32w + 4g + 2T,
+//   its row 16w + g + 8 column 32w + 4g + 2T + 1. The epilogue maps them
+//   back. Under TMA's 128-byte swizzle those loads hit 32 distinct banks.
+// - Each weight is dequantized as the plain version rounds it, bf16(bf16(q)
+//   * bf16(s)), the scale applied before the product, so the kernel
+//   multiplies the plain version's weights bit for bit and only the order
+//   of the sums differs. Full-rate instructions only (byte permutes, an fp32
+//   subtraction, a bf16x2 multiply): int-to-float and float-to-bf16
+//   conversions issue at a fraction of that rate.
+// - ptxas serializes wgmmas (C7513) when a register they read is written
+//   while an earlier wgmma is in flight, so a warpgroup cannot dequantize
+//   one k step under the products of the last. Instead each consumer
+//   warpgroup dequantizes a group of k steps (a whole stage, 4, below N 128;
+//   one at N 128, where 128 accumulators leave room for only 8 fragment
+//   registers), issues their wgmmas as one group and waits, and two
+//   consumer warpgroups take alternate stages: one dequantizes while the
+//   other's products run. Every accumulator gets the same products in the
+//   same order at every N. The two warpgroups' partials are added in the
+//   block (odd stages, then even).
+// - Copies: a producer warp keeps a ring of stages (64 k rows: the q box
+//   [64, 128] and the x box [NW, 64]) full by TMA, with full and empty
+//   mbarriers. The ring takes the shared memory a block can have (up to
+//   ~226 KB: 25 stages of q at decode), so one block per SM keeps far more
+//   than 32 KB of q in flight. Issuing a copy holds the issuing thread for a
+//   while: when the consumers issued them, their wgmmas waited (3-4 us more
+//   per product at decode on an H100), so a warp does only that. It makes
+//   the block 288 threads, which ptxas budgets at 168 registers a thread.
+// - K is split over `split` (1, 2, 4 or 8) blocks of each strip, so that
+//   blocks fill the card at decode (N 4096 has only 32 strips: 4 blocks
+//   each, 128 in all). The split depends on K and N alone (the wrapper's
+//   launch_plan). A block with all of K writes y; otherwise each writes its
+//   fp32 partial to a workspace, and a second small kernel adds the
+//   partials in rank order (the order of the K ranges) and rounds to bf16.
+//   It is launched as a programmatic dependent, so its launch overlaps the
+//   product. A row's sum order never depends on M or on the other rows. No
+//   atomics. (Thread-block clusters adding the partials through distributed
+//   shared memory were tried: at one block per SM an H100 holds only 30
+//   clusters of 4, so N 4096's 32 ran in two waves.)
 // - fp32 (the engine's fp32 check on int8 weights): plain FMA on the CUDA
 //   cores, one column per lane, 16 rows per block, w = fp32(q) * s rounded
-//   once as the plain version rounds it.
-// - The warps' partial sums are added in shared memory in warp order, so a
-//   row's sum order depends on K alone: never on M, on the other rows, or on
-//   the order in which warps finish. No atomics, no second pass.
+//   once as the plain version rounds it; its warps' partial sums are added
+//   in warp order.
 //
-// The wrapper (ops/int8_matmul.py) allocates y, checks shapes, dtypes and
-// alignment, and passes the current stream. This file allocates nothing and
-// never synchronizes, and it sets the kernels' shared-memory attribute once
-// per device, at the first launch (before any capture), so a launch can be
-// captured in a CUDA graph.
+// The wrapper (ops/int8_matmul.py) allocates y and the workspace, checks
+// shapes, dtypes and alignment, computes the launch plan, and passes the
+// current stream. This
+// file allocates nothing and never synchronizes, and it sets the bf16
+// kernels' shared-memory attribute once per device, at the first launch
+// (before any capture), so a launch can be captured in a CUDA graph.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kCols = 32;       // output columns per block
-constexpr int kStageRows = 64;  // k rows per stage: 4 mma k steps
-constexpr int kQStride = 48;    // bytes per q row in shared memory: 32 + 16
-constexpr int kXStride = 144;   // bytes per x row in shared memory: 128 + 16
+// fp32 kernel
+constexpr int kCols = 32;  // output columns per block
 constexpr int kMaxWarps = 8;
 constexpr int kMaxDevices = 64;
 
 struct Params {
-  const void* x;    // [M, K] bf16 or fp32
+  const void* x;    // [M, K] fp32
   const int8_t* q;  // [K, N]
   const float* s;   // [N]
-  void* y;          // [M, N], x's dtype
+  void* y;          // [M, N] fp32
   int M, K, N;
   int warps;  // warps splitting K
 };
 
-// One warp's ring: two stages of [64, 32] q and [16 MT, 64] x.
-template <int MT>
-struct Ring {
-  static constexpr int kQBytes = kStageRows * kQStride;
-  static constexpr int kStageBytes = kQBytes + MT * 16 * kXStride;
-  static constexpr int kStages = 2;
-  static constexpr int kWarpBytes = kStageBytes * kStages;
+// bf16 kernel
+constexpr int kTileCols = 128;   // output columns per block: one 128-byte q box row
+constexpr int kStageRows = 64;   // k rows per ring stage: 4 wgmma k steps
+constexpr int kQStage = kStageRows * kTileCols;  // bytes of q per stage
+constexpr int kMaxRows = 128;    // rows of x per block (the largest wgmma N used)
+constexpr int kMaxSplit = 8;     // blocks per strip
+constexpr int kRedStride = kTileCols + 4;  // floats per row of a staged partial
+constexpr int kConsumers = 2;               // consumer warpgroups, alternating stages
+constexpr int kThreads = 128 * kConsumers + 32;  // and a producer warp
+constexpr int kSmemLimit = 232448;          // a block's dynamic shared memory on sm_90
+
+// NW: wgmma's N (rows of x per block, padded). A stage holds the q box
+// [64, 128] and the x box [NW, 64] (NW rows of 128 bytes), both 1024-byte
+// aligned; the staged partial [NW, 128] fp32 (rows padded to kRedStride)
+// reuses the ring once it is drained.
+template <int NW>
+struct Layout {
+  static constexpr int kStage = kQStage + NW * 128;
+  static constexpr int kRed = NW * kRedStride * 4;
+  __host__ __device__ static constexpr int ring_bytes(int stages) {
+    return stages * kStage > kRed ? stages * kStage : kRed;
+  }
+  // 1024 bytes of alignment slack, the ring, a full and an empty barrier per stage
+  __host__ __device__ static constexpr int smem_bytes(int stages) {
+    return 1024 + ring_bytes(stages) + 16 * stages;
+  }
+  // k steps whose wgmmas are issued as one group: all their A fragments are
+  // live at once (8 registers a step), which at N 128 (64 accumulators a
+  // tile) must fit the 168 registers a 288-thread block has.
+  static constexpr int kGroupSteps = NW >= 128 ? 1 : 4;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; with src_bytes 0, 16 zero bytes.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+struct BfParams {
+  CUtensorMap tm_q;  // q [K, N] as bytes: dims (N, K), boxes of 128 columns by 64 rows
+  CUtensorMap tm_x;  // x [M, K] bf16: dims (K, M), boxes of 64 columns by NW rows
+  const float* s;
+  __nv_bfloat16* y;
+  float* ws;   // [split, M, N] fp32 partials when split > 1
+  int M, N, K;
+  int split;   // blocks per strip; block r sums k rows [r K / split, (r + 1) K / split)
+  int stages;  // ring stages
+};
 
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -129,167 +164,238 @@ __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, __nv_bfloat162 b) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The A fragment of one m64 tile for a k step from the thread's four words
+// of q (``u``, XORed with 0x80808080: k rows 2t, 2t + 1, 2t + 8, 2t + 9):
+// byte B is the column of row g, byte B + 1 that of row g + 8, each
+// dequantized as the plain version rounds it: bf16(q) * bf16(s), one bf16
+// multiply (its exact product rounded once).
+template <int B>
+__device__ __forceinline__ void dequant_fragment(uint32_t (&a)[4], const uint32_t (&u)[4],
+                                                 __nv_bfloat162 s_lo, __nv_bfloat162 s_hi) {
+  a[0] = mul_bf16x2(pack_bf16_exact(int8_value<B>(u[0]), int8_value<B>(u[1])), s_lo);
+  a[1] = mul_bf16x2(pack_bf16_exact(int8_value<B + 1>(u[0]), int8_value<B + 1>(u[1])), s_hi);
+  a[2] = mul_bf16x2(pack_bf16_exact(int8_value<B>(u[2]), int8_value<B>(u[3])), s_lo);
+  a[3] = mul_bf16x2(pack_bf16_exact(int8_value<B + 1>(u[2]), int8_value<B + 1>(u[3])), s_hi);
 }
 
-// mma j = J of a k16 step: the B fragment of column 4g + J from the step's
-// 4 words of q (``u``: XORed with 0x80808080), dequantized as the plain
-// version rounds it: bf16(q) * bf16(s), one bf16 multiply (its exact product
-// rounded once), times every m tile.
-template <int J, int MT>
-__device__ __forceinline__ void mma_column(float (&acc)[MT][4][4], const uint32_t (&a)[MT][4],
-                                           const uint32_t (&u)[4], __nv_bfloat162 s) {
-  const uint32_t b0 = mul_bf16x2(pack_bf16_exact(int8_value<J>(u[0]), int8_value<J>(u[1])), s);
-  const uint32_t b1 = mul_bf16x2(pack_bf16_exact(int8_value<J>(u[2]), int8_value<J>(u[3])), s);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][J], a[mt], b0, b1);
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 out;
+  out.x = *reinterpret_cast<const uint32_t*>(&lo);
+  out.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = out;
 }
 
-// Queues one stage's copies: q rows [k0, k0 + 64) of the block's 32 columns
-// (two 16-byte chunks a row) and x rows [m0, m0 + 16 MT) of columns
-// [k0, k0 + 64) (eight a row; rows past M zero-filled).
-template <int MT>
-__device__ __forceinline__ void issue_stage(uint32_t stage, const Params& p,
-                                            const __nv_bfloat16* x, int k0, int n0, int m0,
-                                            int lane) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = lane + 32 * i;
-    const int row = c >> 1;
-    const int half = c & 1;
-    cp_async16(stage + row * kQStride + 16 * half,
-               p.q + static_cast<size_t>(k0 + row) * p.N + n0 + 16 * half, 16);
+// The reduction pass: y = bf16(ws[0] + ws[1] + ... + ws[split - 1]), the
+// partials added in rank order (the order of the K ranges), 4 columns a
+// thread. Launched as a programmatic dependent of the product: it may start
+// while the product runs, and waits for its end before reading ws; the next
+// kernel may start launching as soon as it runs.
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads) int8_mm_reduce(const float* ws,
+                                                                 __nv_bfloat16* y, int M, int N,
+                                                                 int split) {
+  hopper::wait_prerequisites();
+  hopper::launch_dependents();
+  const size_t quads = static_cast<size_t>(M) * N / 4;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  if (i >= quads) return;
+  const float4* w = reinterpret_cast<const float4*>(ws);
+  float4 v = w[i];
+  for (int r = 1; r < split; ++r) {
+    const float4 o = w[r * quads + i];
+    v.x += o.x;
+    v.y += o.y;
+    v.z += o.z;
+    v.w += o.w;
   }
-  const uint32_t xs = stage + Ring<MT>::kQBytes;
-#pragma unroll
-  for (int i = 0; i < 4 * MT; ++i) {
-    const int c = lane + 32 * i;
-    const int row = c >> 3;
-    const int part = c & 7;
-    const bool valid = m0 + row < p.M;
-    cp_async16(xs + row * kXStride + 16 * part,
-               x + static_cast<size_t>(valid ? m0 + row : 0) * p.K + k0 + 8 * part,
-               valid ? 16 : 0);
-  }
+  store_bf16x4(y + 4 * i, v);
 }
 
-// The 4 k16 steps of one stage from shared memory. Thread (g, t) reads q rows
-// 2t, 2t + 1, 2t + 8, 2t + 9 of a step at byte 4g, and x rows g and g + 8 of
-// each m tile at columns 2t and 2t + 8 (the A fragment of m16n8k16).
-template <int MT>
-__device__ __forceinline__ void compute_stage(float (&acc)[MT][4][4], const unsigned char* stage,
-                                              const __nv_bfloat162 (&sc)[4], int g, int t) {
-  const unsigned char* xs = stage + Ring<MT>::kQBytes;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const unsigned char* qr = stage + (kk * 16 + 2 * t) * kQStride + 4 * g;
-    const uint32_t u[4] = {lds32(qr) ^ 0x80808080u, lds32(qr + kQStride) ^ 0x80808080u,
-                           lds32(qr + 8 * kQStride) ^ 0x80808080u,
-                           lds32(qr + 9 * kQStride) ^ 0x80808080u};
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const unsigned char* xr = xs + (mt * 16 + g) * kXStride + (kk * 16 + 2 * t) * 2;
-      a[mt][0] = lds32(xr);
-      a[mt][1] = lds32(xr + 8 * kXStride);
-      a[mt][2] = lds32(xr + 16);
-      a[mt][3] = lds32(xr + 8 * kXStride + 16);
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumer warpgroups only
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads, 1) int8_mm_bf16(const __grid_constant__ BfParams p) {
+  using L = Layout<NW>;
+  constexpr int KG = L::kGroupSteps;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1024-byte alignment
+  unsigned char* ring_ptr = smem_raw + (ring - raw);
+  const int NS = p.stages;
+  const uint32_t bars = ring + L::ring_bytes(NS);
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (NS + s); };
+
+  // Blocks x of one strip are split consecutive ranks, in k order.
+  const int rank = blockIdx.x % p.split;
+  const int n0 = (blockIdx.x / p.split) * kTileCols;
+  const int m0 = blockIdx.y * kMaxRows;
+  const int krange = p.K / p.split;
+  const int kbeg = rank * krange;
+  const int nst = krange / kStageRows;
+  // Warp index, broadcast from lane 0 so the compiler sees it is uniform
+  // across each warp: the role branches below do not diverge inside a warp.
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 32), 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::prefetch_tensormap(&p.tm_q);
+    hopper::prefetch_tensormap(&p.tm_x);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 4);  // one arrival per warp of the consuming warpgroup
     }
-    mma_column<0, MT>(acc, a, u, sc[0]);
-    mma_column<1, MT>(acc, a, u, sc[1]);
-    mma_column<2, MT>(acc, a, u, sc[2]);
-    mma_column<3, MT>(acc, a, u, sc[3]);
+    hopper::fence_barrier_init();
   }
-}
+  // Launched as a programmatic dependent: the launch and the lines above
+  // overlap the previous kernel; nothing in global memory is touched before
+  // that kernel has ended.
+  hopper::wait_prerequisites();
+  __syncthreads();
 
-template <int MT>
-__global__ void __launch_bounds__(32 * kMaxWarps) int8_mm_bf16(const Params p) {
-  extern __shared__ __align__(16) unsigned char ring_smem[];
-  __shared__ float red[MT * 16 * kCols];
-  using R = Ring<MT>;
-  constexpr int NS = R::kStages;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * kCols;
-  const int m0 = blockIdx.y * MT * 16;
-  const int kw = p.K / p.warps;
-  const int kbeg = warp * kw;
-  const int stages = kw / kStageRows;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  unsigned char* ring = ring_smem + warp * R::kWarpBytes;
-  const uint32_t ring_addr = smem_addr(ring);
-
-  __nv_bfloat162 sc[4];  // bf16(s) of columns 4g..4g+3, in both halves
-#pragma unroll
-  for (int j = 0; j < 4; ++j) sc[j] = __bfloat162bfloat162(__float2bfloat16_rn(p.s[n0 + 4 * g + j]));
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  // The warp's own ring: NS - 1 stages in flight ahead of the one computed.
-  // The __syncwarp after the wait makes every lane's copies visible to the
-  // warp; the one after the compute keeps a stage from being refilled while
-  // a lane still reads it.
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < stages)
-      issue_stage<MT>(ring_addr + s * R::kStageBytes, p, x, kbeg + s * kStageRows, n0, m0, lane);
-    cp_async_commit();
-  }
-  for (int st = 0; st < stages; ++st) {
-    const int ahead = st + NS - 1;
-    if (ahead < stages)
-      issue_stage<MT>(ring_addr + (ahead % NS) * R::kStageBytes, p, x,
-                      kbeg + ahead * kStageRows, n0, m0, lane);
-    cp_async_commit();
-    cp_async_wait<NS - 1>();
+  if (warp == 4 * kConsumers) {
+    // Producer: one thread keeps the ring full, stages in k order. (Issuing
+    // a TMA copy holds the issuing thread for a while; a consumer that did it
+    // would hold its warpgroup's wgmmas.)
+    if (lane == 0) {
+      for (int j = 0; j < nst; ++j) {
+        const int s = j % NS;
+        hopper::mbar_wait(empty(s), ((j / NS) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full(s), L::kStage);
+        const uint32_t dst = ring + s * L::kStage;
+        const int k0 = kbeg + j * kStageRows;
+        hopper::tma_load_2d(dst, &p.tm_q, full(s), n0, k0);
+        hopper::tma_load_2d(dst + kQStage, &p.tm_x, full(s), k0, m0);
+      }
+    }
     __syncwarp();
-    compute_stage<MT>(acc, ring + (st % NS) * R::kStageBytes, sc, g, t);
-    __syncwarp();
-  }
-
-  // Warp w adds its accumulators after warps 0..w-1: mma j's columns 2t and
-  // 2t + 1 are the block's columns 8t + j and 8t + 4 + j.
-  for (int w = 0; w < p.warps; ++w) {
-    if (warp == w) {
+  } else {
+    // Consumer warpgroup wg takes stages wg, wg + 2, ...; its warp w
+    // dequantizes columns 32w .. 32w + 31 of the strip.
+    const int wg = warp / 4;
+    const int w = warp % 4;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    __nv_bfloat162 sc[4];  // bf16(s) of columns 32w + 4g + b, in both halves
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int b = 0; b < 4; ++b) {
+      const int col = n0 + 32 * w + 4 * g + b;
+      sc[b] = __bfloat162bfloat162(__float2bfloat16_rn(col < p.N ? p.s[col] : 0.f));
+    }
+    float acc[2][NW / 2];  // the two m64 tiles: rows are columns of y, columns rows of y
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float* r0 = red + (mt * 16 + g) * kCols + 8 * t + j;
-          float* r1 = r0 + 8 * kCols;
-          if (w == 0) {
-            r0[0] = acc[mt][j][0];
-            r0[4] = acc[mt][j][1];
-            r1[0] = acc[mt][j][2];
-            r1[4] = acc[mt][j][3];
-          } else {
-            r0[0] += acc[mt][j][0];
-            r0[4] += acc[mt][j][1];
-            r1[0] += acc[mt][j][2];
-            r1[4] += acc[mt][j][3];
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[T][i] = 0.f;
+    // Nothing but the wgmmas touches the accumulators while one is in flight.
+    hopper::fence_acc(acc[0]);
+    hopper::fence_acc(acc[1]);
+    // Byte offsets of the thread's word in a q row r under the swizzle
+    // (16-byte chunk c of row r at chunk c ^ (r % 8)), for r % 8 = 2t and 2t + 1.
+    const int chunk = 2 * w + (g >> 2);
+    const int off0 = ((chunk ^ (2 * t)) << 4) + 4 * (g & 3);
+    const int off1 = ((chunk ^ (2 * t + 1)) << 4) + 4 * (g & 3);
+    for (int j = wg; j < nst; j += kConsumers) {
+      const int s = j % NS;
+      hopper::mbar_wait(full(s), (j / NS) & 1);
+      const unsigned char* qs = ring_ptr + s * L::kStage;
+      const uint32_t xs = ring + s * L::kStage + kQStage;
+      // KG k steps at a time: their words of q, their fragments, then their
+      // wgmmas as one group, waited on before the next fragments are built
+      // (ptxas serializes wgmmas, C7513, if a fragment is built while an
+      // earlier wgmma is in flight): the other warpgroup's stage is what
+      // overlaps this one's products.
+#pragma unroll
+      for (int k0 = 0; k0 < 4; k0 += KG) {
+        uint32_t u[KG][4];
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          const unsigned char* qr = qs + ((k0 + i) * 16 + 2 * t) * kTileCols;
+          u[i][0] = lds32(qr + off0);
+          u[i][1] = lds32(qr + kTileCols + off1);
+          u[i][2] = lds32(qr + 8 * kTileCols + off0);
+          u[i][3] = lds32(qr + 9 * kTileCols + off1);
+        }
+        uint32_t a[KG][2][4];  // [k step][tile]
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) u[i][r] ^= 0x80808080u;
+          dequant_fragment<0>(a[i][0], u[i], sc[0], sc[1]);
+          dequant_fragment<2>(a[i][1], u[i], sc[2], sc[3]);
+          hopper::fence_regs(a[i][0]);
+          hopper::fence_regs(a[i][1]);
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          const uint64_t desc = hopper::desc_k_major(xs + (k0 + i) * 32);
+          hopper::wgmma_rs_k<NW>(acc[0], a[i][0], desc, 1);
+          hopper::wgmma_rs_k<NW>(acc[1], a[i][1], desc, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+      }
+      hopper::fence_acc(acc[0]);
+      hopper::fence_acc(acc[1]);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
+    }
+    // The reduction pass may start launching (it waits for this grid's end).
+    hopper::launch_dependents();
+    // The block's partial [NW, 128] over the drained ring: accumulator
+    // d[4n + e] of tile T is row 8n + 2t + (e & 1) of y and column
+    // 32w + 4g + 2T + (e >> 1), so e = 0, 2 of both tiles make four adjacent
+    // columns of one row. Warpgroup 1 stores its sums (odd stages), then
+    // warpgroup 0 adds its own (even stages).
+    consumer_sync();
+    float* red = reinterpret_cast<float*>(ring_ptr);
+#pragma unroll
+    for (int pass = 1; pass >= 0; --pass) {
+      if (wg == pass) {
+#pragma unroll
+        for (int n = 0; n < NW / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float4* r =
+                reinterpret_cast<float4*>(red + (8 * n + 2 * t + e) * kRedStride + 32 * w + 4 * g);
+            float4 v = make_float4(acc[0][4 * n + e], acc[0][4 * n + e + 2], acc[1][4 * n + e],
+                                   acc[1][4 * n + e + 2]);
+            if (pass == 0) {
+              const float4 o = *r;
+              v.x += o.x;
+              v.y += o.y;
+              v.z += o.z;
+              v.w += o.w;
+            }
+            *r = v;
           }
         }
+      }
+      if (pass == 1) consumer_sync();
     }
-    __syncthreads();
   }
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
-  for (int i = threadIdx.x; i < MT * 16 * kCols; i += blockDim.x) {
-    const int r = m0 + i / kCols;
-    if (r < p.M) y[static_cast<size_t>(r) * p.N + n0 + i % kCols] = __float2bfloat16_rn(red[i]);
+
+  // The block's sums, 4 columns a thread: y in bf16 when the block has all
+  // of K, else its fp32 partial for the reduction pass.
+  __syncthreads();
+  for (int q4 = threadIdx.x; q4 < NW * kTileCols / 4; q4 += kThreads) {
+    const int row = q4 / (kTileCols / 4);
+    const int col4 = q4 % (kTileCols / 4);
+    const int m = m0 + row;
+    const int n = n0 + 4 * col4;
+    if (m >= p.M || n >= p.N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(ring_ptr + (row * kRedStride + 4 * col4) * 4);
+    if (p.split == 1) {
+      store_bf16x4(p.y + static_cast<size_t>(m) * p.N + n, v);
+    } else {
+      *reinterpret_cast<float4*>(p.ws + (static_cast<size_t>(rank) * p.M + m) * p.N + n) = v;
+    }
   }
 }
 
@@ -339,55 +445,127 @@ __global__ void __launch_bounds__(32 * kMaxWarps) int8_mm_f32(const Params p) {
   }
 }
 
-// Sets the ring's dynamic shared memory (above the 48 KB default) once per
-// device, then launches on `stream`; returns the CUDA error of the launch.
-template <int MT>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+template <int N>
+struct Nw {
+  static constexpr int value = N;
+};
+
+// f(Nw<wgmma_n>{}) for the wgmma N's the kernel is built for, else an error.
+template <typename F>
+int with_nw(int wgmma_n, F f) {
+  switch (wgmma_n) {
+    case 8: return f(Nw<8>{});
+    case 16: return f(Nw<16>{});
+    case 32: return f(Nw<32>{});
+    case 64: return f(Nw<64>{});
+    case 128: return f(Nw<128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Raises the bf16 kernel's dynamic shared-memory limit once per device
+// (before any capture: a captured launch must not set it).
+template <int NW>
+int prepare_bf16() {
   static bool ready[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(int8_mm_bf16<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxWarps * Ring<MT>::kWarpBytes);
+    void (*kernel)(BfParams) = int8_mm_bf16<NW>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  const dim3 grid(p.N / kCols, (p.M + MT * 16 - 1) / (MT * 16));
-  int8_mm_bf16<MT><<<grid, 32 * p.warps, p.warps * Ring<MT>::kWarpBytes, stream>>>(p);
+  return 0;
+}
+
+// Launches the bf16 kernel on `stream`, and the reduction pass after it when
+// split > 1; returns the CUDA error of the launches, or an error code of
+// hopper.cuh. Refuses a plan the kernel cannot run: a split that is not a
+// power of two up to kMaxSplit dividing K's stages, or without a workspace;
+// no ring stage; more shared memory than a block has; fewer rows than M (up
+// to kMaxRows) in wgmma's N.
+template <int NW>
+int launch_bf16(const void* x, const void* q, const float* s, void* y, float* ws, int M, int K,
+                int N, int split, int stages, cudaStream_t stream) {
+  if (split < 1 || split > kMaxSplit || (split & (split - 1)) != 0 ||
+      (K / kStageRows) % split != 0 || (split > 1 && ws == nullptr) || stages < 1 ||
+      Layout<NW>::smem_bytes(stages) > kSmemLimit || NW < (M < kMaxRows ? M : kMaxRows))
+    return cudaErrorInvalidValue;
+  int rc = prepare_bf16<NW>();
+  if (rc != 0) return rc;
+  BfParams p;
+  rc = hopper::encode_2d(&p.tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, N, kTileCols,
+                         kStageRows);
+  if (rc != 0) return rc;
+  rc = hopper::encode_2d(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ll * K, 64, NW);
+  if (rc != 0) return rc;
+  p.s = s;
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.ws = ws;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.split = split;
+  p.stages = stages;
+  // Both kernels are programmatic dependents of what precedes them on the
+  // stream (each waits for it to end before touching global memory).
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTileCols - 1) / kTileCols * split, (M + kMaxRows - 1) / kMaxRows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Layout<NW>::smem_bytes(stages);
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, int8_mm_bf16<NW>, p);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return err;
+  cfg.gridDim = dim3(static_cast<unsigned>(
+      (static_cast<size_t>(M) * N / 4 + kReduceThreads - 1) / kReduceThreads));
+  cfg.blockDim = dim3(kReduceThreads);
+  cfg.dynamicSmemBytes = 0;
+  err = cudaLaunchKernelEx(&cfg, int8_mm_reduce, static_cast<const float*>(ws),
+                           static_cast<__nv_bfloat16*>(y), M, N, split);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16 (x and y). Needs K a multiple of 64, N of 32, and x
-// and q 16-byte aligned (the wrapper checks). Returns the CUDA error of the
-// launch, 0 on success.
+// and q 16-byte aligned (the wrapper checks). workspace, split, stages and
+// wgmma_n are the bf16 kernel's launch plan (ops/int8_matmul.py launch_plan:
+// workspace holds split * M * N fp32 partials when split > 1; the fp32
+// kernel ignores all four). Returns 0 on success, else the CUDA error of the
+// launch or an error code of hopper.cuh.
 extern "C" int int8_matmul(const void* x, const void* q, const void* s, void* y, int dtype,
-                           int M, int K, int N, void* stream) {
-  Params p;
-  p.x = x;
-  p.q = static_cast<const int8_t*>(q);
-  p.s = static_cast<const float*>(s);
-  p.y = y;
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  const int k64 = K / kStageRows;
-  p.warps = k64 % 8 == 0 ? 8 : k64 % 4 == 0 ? 4 : k64 % 2 == 0 ? 2 : 1;
+                           int M, int K, int N, void* stream, void* workspace, int split,
+                           int stages, int wgmma_n) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    Params p;
+    p.x = x;
+    p.q = static_cast<const int8_t*>(q);
+    p.s = static_cast<const float*>(s);
+    p.y = y;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    const int k64 = K / 64;
+    p.warps = k64 % 8 == 0 ? 8 : k64 % 4 == 0 ? 4 : k64 % 2 == 0 ? 2 : 1;
     const dim3 grid(N / kCols, (M + kRowsF32 - 1) / kRowsF32);
     int8_mm_f32<<<grid, 32 * p.warps, 0, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err;
-  if (M <= 16)
-    err = launch_bf16<1>(p, st);
-  else if (M <= 32)
-    err = launch_bf16<2>(p, st);
-  else
-    err = launch_bf16<4>(p, st);
-  return static_cast<int>(err);
+  return with_nw(wgmma_n, [&](auto nw) {
+    return launch_bf16<decltype(nw)::value>(x, q, static_cast<const float*>(s), y,
+                                            static_cast<float*>(workspace), M, K, N, split,
+                                            stages, st);
+  });
 }

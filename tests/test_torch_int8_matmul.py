@@ -1,8 +1,11 @@
 """The int8 weight-only matmul (ray_tpu_torch/ops/int8_matmul.py) on the CPU:
 its plain version held against JAX's ``einsum(x, QTensor.astype(dtype))``
 for every int8 weight layout of a layer, what ``_check`` refuses, that no
-tensor off the CPU falls back to the plain version, and that ``apply_layer``
-on a quantized layer equals the dequantize-then-einsum route.
+tensor off the CPU falls back to the plain version, that ``apply_layer``
+on a quantized layer equals the dequantize-then-einsum route, and the bf16
+kernel's launch plan (``launch_plan``): its K split, which fixes every
+row's sum order, depends on K and N and never on M, and every shape that
+``chip_smoke.py`` runs gets a plan the kernel accepts.
 
 Tolerances. Both sides multiply the same dequantized weights (bit-identical,
 tests/test_torch_quant.py) and sum in another order:
@@ -14,6 +17,8 @@ tests/test_torch_quant.py) and sum in another order:
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -251,3 +256,76 @@ def test_apply_layer_on_int8_weights_equals_dequantize_then_einsum(
     want, _ = ttf.apply_layer(x, plain, cfg, pos, attn)
     assert len(calls) == 6
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# --- the bf16 kernel's launch plan (ops/int8_matmul.py launch_plan) -------
+
+def _load_chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _load_chip_smoke()
+SERVE_7B_SHAPES = sorted(set(CS.int8_weight_shapes(
+    ttf.TransformerConfig.serve_7b()).values()))
+TINY_SHAPES = sorted(set(CS.int8_weight_shapes(TINY).values()))
+# chip_smoke's int8 cases: serve_7b's shapes at decode's and prefill's M,
+# the first shape at ragged M, tiny's shapes at M 8 and 64
+SMOKE_CASES = sorted(
+    {(m, k, n) for (k, n) in SERVE_7B_SHAPES for m in CS.INT8_MS}
+    | {(m, *SERVE_7B_SHAPES[0]) for m in CS.INT8_RAGGED_MS}
+    | {(m, k, n) for (k, n) in TINY_SHAPES for m in (8, 64)})
+
+
+@pytest.mark.parametrize("k,n", SERVE_7B_SHAPES + TINY_SHAPES + [(64, 32)],
+                         ids=lambda v: str(v))
+def test_k_split_depends_on_k_and_n_never_on_m(k, n):
+    """The split fixes each row's sum order (K ranges added in rank order),
+    so it must be the same for every M: a row computed alone or in a batch
+    of any size gets the same bits."""
+    splits = {im.launch_plan(m, k, n).split for m in range(1, 1025)}
+    assert splits == {im.k_split(k, n)}
+
+
+@pytest.mark.parametrize("m,k,n", SMOKE_CASES, ids=lambda v: str(v))
+def test_every_smoke_shape_gets_a_valid_plan(m, k, n):
+    """What ``launch_bf16`` in csrc/int8_matmul.cu accepts: a split that is a
+    power of two up to 8 dividing K's 64-row stages, with a workspace for
+    the partials when above 1; at least one ring stage and no more than a
+    block streams; the shared memory within a block's limit and holding the
+    staged partial; wgmma's N one the kernel is built for and covering
+    min(M, 128) rows."""
+    plan = im.launch_plan(m, k, n)
+    block_stages = k // im.STAGE_ROWS // plan.split
+    assert plan.split in (1, 2, 4, 8) and (k // im.STAGE_ROWS) % plan.split == 0
+    assert plan.workspace_bytes == (4 * plan.split * m * n
+                                    if plan.split > 1 else 0)
+    assert 1 <= plan.stages <= block_stages
+    assert plan.smem_bytes <= im.SMEM_LIMIT
+    assert plan.smem_bytes >= 1024 + plan.wgmma_n * (im.TILE_COLS + 4) * 4
+    assert plan.wgmma_n in im.WGMMA_NS and plan.wgmma_n >= min(m, im.MAX_ROWS)
+    assert plan.m_tiles * im.MAX_ROWS >= m > (plan.m_tiles - 1) * im.MAX_ROWS
+    assert plan.grid == (plan.split * -(-n // im.TILE_COLS), plan.m_tiles)
+    assert plan.tile_cols == im.TILE_COLS
+
+
+@pytest.mark.parametrize("k,n", SERVE_7B_SHAPES, ids=lambda v: str(v))
+def test_serve_7b_decode_fills_the_card_with_q_in_flight(k, n):
+    """At decode (M 8) every serve_7b shape runs one block per SM on at
+    least 120 of the H100's 132 SMs, and each block's ring holds at least
+    32 KB of q (four stages of 64 rows by 128 columns)."""
+    plan = im.launch_plan(8, k, n)
+    blocks = plan.grid[0] * plan.grid[1]
+    assert 120 <= blocks <= im.H100_SMS
+    assert plan.stages * im.STAGE_ROWS * im.TILE_COLS >= 32 * 1024
+    assert plan.wgmma_n == 8
+
+
+def test_rows_above_128_tile_m_and_keep_the_split():
+    small, big = im.launch_plan(128, 4096, 4096), im.launch_plan(
+        300, 4096, 4096)
+    assert (small.m_tiles, big.m_tiles) == (1, 3)
+    assert small.split == big.split and big.wgmma_n == 128

@@ -66,6 +66,8 @@ def test_int8_matmul_passes_pointers_and_the_stream_as_pointers():
     got = im._ARGTYPES[("int8_matmul", "int8_matmul")]
     assert [got[i] for i in (0, 1, 2, 3, 8)] == [ctypes.c_void_p] * 5
     assert got[4:8] == [ctypes.c_int] * 4  # dtype, M, K, N
+    # the plan: workspace, split, stages, wgmma_n
+    assert got[9:] == [ctypes.c_void_p] + [ctypes.c_int] * 3
 
 
 def test_the_parser_reads_pointer_and_integer_widths():
