@@ -3,12 +3,13 @@
     python3 chip_smoke.py                  # every phase (what a check runs)
     timeout 300 python3 chip_smoke.py kernel   # the kernel phases only
     timeout 600 python3 chip_smoke.py serve_7b # the serve_7b phase only
+    timeout 600 python3 chip_smoke.py train    # the train phase only
 
 Run from the repo root on a machine with one CUDA card. Seven phases; any
 failure raises and the script exits non-zero without a result line. With
-the argument ``kernel`` (or ``serve_7b``) it runs the kernel phases (or the
-serve_7b phase) alone and prints no result line: the first call after a
-kernel (or the serving path) changes, under ``timeout``.
+the argument ``kernel`` (or ``serve_7b``, or ``train``) it runs the kernel
+phases (or that phase) alone and prints no result line: the first call
+after a kernel (or that path) changes, under ``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -32,12 +33,23 @@ kernel (or the serving path) changes, under ``timeout``.
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
    the logits must agree with the dense-attention forward.
-4. train: ``bench_400m`` (remat "dots", flash) through
-   ``make_sharded_state`` / ``make_train_step`` / ``default_optimizer`` on
-   one seeded batch [8, 2048] repeated: 2 warm-up and 5 timed steps, each
-   launching the forward kernel 48 times (forward and remat recompute) and
-   each backward kernel 24 times; loss and grad norm finite, the loss
-   falling; step ms, tokens/s, MFU, peak memory and a profiled step.
+4. train: ``bench_400m`` (remat "dots", flash) trained as the reference's
+   loops train it: seeded numpy batches [8, 2048] (a cycle of 4) through
+   the port's pump (``data.device_batches``) into ``make_train_step``,
+   which runs step 1 eagerly (warm-up), captures step 2 as one CUDA graph
+   and replays it from then on; a ``save_sharded`` checkpoint after step 8,
+   written while steps 9-14 train. Checks: the flash wrappers count 48 /
+   24 / 24 for the eager step and for the capture and nothing for the 13
+   replays, and one profiled replay launches the kernels 48 / 24 / 24
+   times by name; loss and grad norm finite, the loss of the last cycle
+   below the first; eager steps from a state of the same seed equal the
+   captured ones bit for bit; the checkpoint restored into a fresh state
+   equals the saved state bit for bit, and its next step equals the
+   original's, every tensor included. Printed: replay ms (CUDA events),
+   tokens/s, MFU, host ms per call, wall ms per replay, device-busy share
+   of a replay, peak memory eager and captured, eager step ms, the pump's
+   prefetch and hidden host time, and the checkpoint's bytes, snapshot ms,
+   write and restore seconds.
 5. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
    at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
    bf16 train steps' losses and grad norms, flash against dense (step 1
@@ -88,6 +100,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -139,7 +152,8 @@ def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
     the time the host took to queue the work (until ``fn`` returned), the
     device's busy time (union of its kernel and copy intervals), the busy
     share of the wall, the kernels with the most device time and, with
-    ``kinds`` (name -> regex), the device time of each kind of kernel."""
+    ``kinds`` (name -> regex), the device time and the launches of each
+    kind of kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -155,6 +169,7 @@ def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     busy_us, end, by_name = 0.0, float("-inf"), {}
     by_kind = dict.fromkeys([*kinds, "other"], 0.0) if kinds else {}
+    count_by_kind = dict.fromkeys(by_kind, 0)
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
@@ -162,6 +177,7 @@ def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
             kind = next((k for k, rx in kinds.items() if re.search(rx, name)),
                         "other")
             by_kind[kind] += (stop - start) / 1e3
+            count_by_kind[kind] += 1
         name = name[:80]
         by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
     busy_ms = busy_us / 1e3 if spans else None  # None: profiler saw none
@@ -172,6 +188,7 @@ def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
                                     key=lambda kv: -kv[1])[:top]}
     if kinds:
         out["device_ms_by_kind"] = by_kind
+        out["launches_by_kind"] = count_by_kind
     return out
 
 
@@ -751,71 +768,293 @@ def train_flops(cfg, b: int, s: int) -> int:
         12 * cfg.n_layers * cfg.n_heads * cfg.d_head * b * s * s // 2)
 
 
+# The train phase's loop: batches drawn from a cycle of TRAIN_CYCLE fixed
+# seeded batches (so the loss can fall), TRAIN_STEPS steps, a checkpoint
+# saved after step TRAIN_SAVE_AFTER while training goes on.
+TRAIN_CYCLE, TRAIN_STEPS, TRAIN_SAVE_AFTER = 4, 14, 8
+# Flash launches of one bench_400m train step: the forward kernel in the
+# forward and again in the remat recompute, each backward kernel once, per
+# layer; counted by kernel name in a profiled graph replay. Beside them, the
+# other kinds of kernel of a step, matched in order on the full name:
+# cuBLAS's products, the foreach kernels (clip, global norm, AdamW), dtype
+# conversions and copies, other elementwise kernels.
+FLASH_KINDS = {"flash_fwd": "flash_fwd_(bf16|f32)_kernel",
+               "flash_bwd_dq": "flash_bwd_dq_(bf16|f32)_kernel",
+               "flash_bwd_dkv": "flash_bwd_dkv_(bf16|f32)_kernel"}
+TRAIN_KINDS = {**FLASH_KINDS, "gemm": DECODE_KINDS["gemm"],
+               "foreach": "multi_tensor_apply",
+               "copy_convert": "copy_kernel|direct_copy",
+               "elementwise": "elementwise_kernel"}
+
+
+def numpy_train_batches(vocab: int, b: int, s: int, n: int,
+                        seed: int) -> list:
+    """``n`` seeded numpy batches as a data source yields them: tokens,
+    the targets shifted by one, and a mask of ones."""
+    out = []
+    for i in range(n):
+        ids = np.random.default_rng(seed + i).integers(0, vocab, (b, s + 1))
+        out.append({"tokens": ids[:, :-1], "targets": ids[:, 1:],
+                    "mask": np.ones((b, s), np.float32)})
+    return out
+
+
+def state_tensors(state) -> list:
+    """Every tensor a TrainState holds: step, params, and per parameter
+    AdamW's step count and moments."""
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    out = [state.step]
+    for p in tree_leaves(state.params):
+        st = state.opt_state.state[p]
+        out += [p.detach(), st["step"], st["exp_avg"], st["exp_avg_sq"]]
+    return out
+
+
+def tensors_differing(a: list, b: list) -> int:
+    """How many of two states' tensors differ in any bit."""
+    check(len(a) == len(b), "states of different structure")
+    return sum(not torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _metric(m) -> tuple:
+    return (m["loss"].item(), m["grad_norm"].item(), int(m["step"]))
+
+
 def phase_train(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1],
-                warmup: int = 2, timed: int = 5) -> dict:
-    """``bench_400m`` trained on the card through the port's entry points:
-    one seeded batch, repeated; every step must launch the forward kernel
-    twice per layer (forward and remat recompute) and each backward kernel
-    once per layer."""
+                steps: int = TRAIN_STEPS,
+                save_after: int = TRAIN_SAVE_AFTER) -> dict:
+    """``bench_400m`` trained on the card as the reference's loops train
+    it: numpy batches through the port's pump (``device_batches``), the
+    port's ``make_train_step`` (step 1 the eager warm-up, step 2 captures
+    the CUDA graph, then replays), and a ``save_sharded`` checkpoint after
+    step ``save_after`` written while training goes on. Then: one replay
+    profiled (48 / 24 / 24 flash launches by kernel name; the wrappers'
+    counters must not move across replays); eager steps from a state of the
+    same seed, which must equal the captured ones bit for bit (the same
+    kernels in the same order on the same inputs; no kernel of the step
+    sums with atomics); and the checkpoint restored into a fresh state,
+    bit-equal to the state it saved, whose next step (eager) must equal
+    the original's (captured) bit for bit, every tensor included."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.data import device_batches
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import (
         default_optimizer,
         make_sharded_state,
         make_train_step,
     )
+    from ray_tpu_torch.train import is_committed, load_sharded, save_sharded
 
     check(cfg.attn_impl == "flash" and cfg.remat
           and cfg.remat_policy == "dots", "bench_400m trains with flash "
           "attention under remat 'dots'")
+    check(2 < save_after < steps, "the save falls among the replays")
+    cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+
+    def counters():
+        return (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+
+    def on_card(i):
+        return {k: torch.from_numpy(v).cuda() for k, v in cycle[i].items()}
+
+    # The pump alone, with no step beside it: its own host cost per batch.
+    alone = device_batches(lambda: iter(cycle * 2), prefetch_batches=2)
+    t0 = time.perf_counter()
+    for _ in alone:
+        pass
+    torch.cuda.synchronize()
+    pump_alone_ms = ((time.perf_counter() - t0) * 1e3 / len(cycle) / 2,
+                     alone.stats["host_s"] * 1e3 / len(cycle) / 2)
+
     opt = default_optimizer()
     state, _ = make_sharded_state(cfg, opt, SEED)
     step = make_train_step(cfg, opt)
-    batch = train_batch(cfg.vocab_size, b, s, SEED + 2)
-    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    metrics, events, launches = [], [], []
-    for _ in range(warmup + timed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        metrics, events, host_ms = [], [], []
         fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
-        start.record()
-        state, m = step(state, batch)
-        end.record()
-        counts = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
-        check(counts == want, f"train step launched flash fwd/dq/dkv "
-              f"{counts} times, not {want}")
-        launches.append(counts)
-        metrics.append(m)
-        events.append((start, end))
-    torch.cuda.synchronize()
-    peak_mem = torch.cuda.max_memory_allocated()
-    losses = [m["loss"].item() for m in metrics]
-    norms = [m["grad_norm"].item() for m in metrics]
-    step_ms = [a.elapsed_time(e) for a, e in events[warmup:]]
-    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-          f"non-finite loss or grad norm: {losses}, {norms}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    mean_ms = float(np.mean(step_ms))
-    flops = train_flops(cfg, b, s)
-    prof = device_profile(lambda: step(state, batch))
-    # The same step under remat "full", which runs no selective-checkpoint
-    # dispatch mode on the host (and recomputes more on the device): is the
-    # host's queueing time the policy's?
-    full = make_train_step(dataclasses.replace(cfg, remat_policy="full"), opt)
-    full(state, batch)  # warm-up
-    prof_full = device_profile(lambda: full(state, batch))
-    del state, step, full, metrics
+        pump = device_batches(
+            lambda: (cycle[i % TRAIN_CYCLE] for i in range(steps)),
+            prefetch_batches=2)
+        for i, batch in enumerate(pump):
+            n = i + 1  # the step this call takes
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            metrics.append(m)
+            events.append((start, end))
+            if n == 1:  # the eager warm-up
+                torch.cuda.synchronize()
+                eager_peak = torch.cuda.max_memory_allocated()
+                above = {"eager_first_step": eager_peak - base}
+                warm_counts = counters()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            elif n == 2:  # captured, and replayed once
+                torch.cuda.synchronize()
+                capture_counts = counters()
+                t_replays = time.perf_counter()
+            elif n == save_after:
+                torch.cuda.synchronize()
+                wall_ms = ((time.perf_counter() - t_replays) * 1e3
+                           / (save_after - 2))
+                captured_peak = torch.cuda.max_memory_allocated()
+                above["captured"] = captured_peak - base
+                at_save = [t.clone() for t in state_tensors(state)]
+                t0 = time.perf_counter()
+                handle = save_sharded(state, tmp, step=n)
+                snapshot_ms = (time.perf_counter() - t0) * 1e3
+                t_save = time.perf_counter()
+            elif n == save_after + 1:
+                after_save = [t.clone() for t in state_tensors(state)]
+                write_done_next = handle.done()
+        torch.cuda.synchronize()
+        loop_after_save_s = time.perf_counter() - t_save
+        run_counts = counters()
+        handle.wait()
+        write_s = handle.seconds
+        commit_s = time.perf_counter() - t_save
+        check(is_committed(tmp, save_after), "checkpoint not committed")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         Path(tmp, f"pieces_{save_after}").iterdir())
+        check(pump.stats["batches"] == steps and not pump.thread.is_alive(),
+              f"pump: {pump.stats}")
+        check(warm_counts == want and capture_counts == tuple(
+            2 * w for w in want) and run_counts == capture_counts,
+              f"flash wrapper counts: warm-up {warm_counts}, after capture "
+              f"{capture_counts}, after the run {run_counts} (want {want} "
+              "per eager or captured step, none per replay)")
+        check(step.captures == 1 and step.replays == steps - 1,
+              f"{step.captures} captures, {step.replays} replays")
+        losses = [m["loss"].item() for m in metrics]
+        norms = [m["grad_norm"].item() for m in metrics]
+        check([int(m["step"]) for m in metrics] == list(range(1, steps + 1)),
+              "metrics' steps")
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"non-finite loss or grad norm: {losses}, {norms}")
+        first = float(np.mean(losses[:TRAIN_CYCLE]))
+        last = float(np.mean(losses[-TRAIN_CYCLE:]))
+        check(last < first, f"loss did not fall over the cycle: {losses}")
+        step_ms = [a.elapsed_time(e) for a, e in events]
+        replay_ms = step_ms[2:save_after]
+        mean_ms = float(np.mean(replay_ms))
+        flops = train_flops(cfg, b, s)
+
+        # One replay profiled: the flash kernels by name, the busy share.
+        batch = on_card(steps % TRAIN_CYCLE)
+        before = counters()
+        prof = device_profile(lambda: step(state, batch), kinds=TRAIN_KINDS)
+        check(counters() == before, "a replay moved the flash counters")
+        per_replay = tuple(prof["launches_by_kind"][k] for k in FLASH_KINDS)
+        check(per_replay == want, f"one replay launched flash fwd/dq/dkv "
+              f"{per_replay} times, not {want}")
+        del batch
+
+        # Eager steps from a state of the same seed against the captured.
+        opt_b = default_optimizer()
+        state_b, _ = make_sharded_state(cfg, opt_b, SEED)
+        step_b = make_train_step(cfg, opt_b)
+        eager, eager_ms = [], []
+        for i in range(3):
+            batch = on_card(i)
+            if i == 2:  # the moments exist now, as in a captured step
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eager.append(_metric(step_b.eager(state_b, batch)[1]))
+            end.record()
+            torch.cuda.synchronize()
+            eager_ms.append(start.elapsed_time(end))
+        above["eager_later_step"] = torch.cuda.max_memory_allocated() - base
+        captured = [_metric(m) for m in metrics[:3]]
+        check(eager == captured, f"eager steps {eager} != captured (1: "
+              f"eager warm-up, 2: first captured, 3: replay) {captured}")
+        del state_b, step_b, opt_b, batch
+        torch.cuda.empty_cache()
+
+        # The checkpoint restored into a fresh state, and one more step.
+        opt_c = default_optimizer()
+        state_c, _ = make_sharded_state(cfg, opt_c, SEED + 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_sharded(tmp, like=state_c)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_diff = tensors_differing(state_tensors(state_c), at_save)
+        step_c = make_train_step(cfg, opt_c)
+        _, m_c = step_c(state_c, on_card(save_after % TRAIN_CYCLE))
+        resumed = _metric(m_c)
+        resumed_diff = tensors_differing(state_tensors(state_c), after_save)
+        check(restored_diff == 0, f"{restored_diff} restored tensors differ "
+              "from the state saved")
+        check(resumed == _metric(metrics[save_after]) and resumed_diff == 0,
+              f"the restored state's next step {resumed} (tensors differing "
+              f"{resumed_diff}) != the original's "
+              f"{_metric(metrics[save_after])}")
+        del state_c, step_c, opt_c, at_save, after_save
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state, step, metrics
     torch.cuda.empty_cache()
+    stats = pump.stats
+    hidden_ms = max(0.0, stats["host_s"] - stats["wait_s"]) / steps * 1e3
     out = {"phase": "train", "batch": [b, s], "n_layers": cfg.n_layers,
-           "remat_policy": cfg.remat_policy, "losses": losses,
-           "grad_norms": norms, "step_ms": step_ms, "step_ms_mean": mean_ms,
+           "remat_policy": cfg.remat_policy, "steps": steps,
+           "losses": losses, "grad_norms": norms,
+           "loss_mean_first_cycle": first, "loss_mean_last_cycle": last,
+           "step_ms": step_ms, "step_ms_mean": mean_ms,
+           "step_ms_timed": replay_ms,
+           "step_ms_while_writing": step_ms[save_after:],
+           "host_ms_per_call": host_ms,
+           "host_ms_per_replay_mean": float(np.mean(host_ms[2:save_after])),
+           "wall_ms_per_replay": wall_ms,
+           "eager_step_ms": eager_ms,
            "tokens_per_s": b * s / mean_ms * 1e3, "flops_per_step": flops,
            "mfu": flops / (mean_ms / 1e3) / PEAK_BF16_FLOPS,
-           "launches_per_step": dict(zip(("flash_fwd", "flash_bwd_dq",
-                                          "flash_bwd_dkv"), launches[-1])),
-           "max_memory_allocated_bytes": peak_mem, "profile": prof,
-           "profile_remat_full": prof_full}
+           "launches_per_step": dict(zip(FLASH_KINDS, per_replay)),
+           "wrapper_counts_in_run": dict(zip(FLASH_KINDS, run_counts)),
+           "captures": 1, "replays_in_run": steps - 1,
+           "eager_vs_captured": {"eager": eager, "captured": captured,
+                                 "bit_equal": True},
+           "peak_memory_eager_bytes": eager_peak,
+           "peak_memory_captured_bytes": captured_peak,
+           # peak of a step above what was allocated before it (the state;
+           # AdamW's moments are made during the first step)
+           "step_memory_above_state_bytes": above,
+           "pump": {"batches": stats["batches"],
+                    "prefetched": stats["ready"],
+                    "host_ms_per_batch": stats["host_s"] / steps * 1e3,
+                    "consumer_wait_ms_per_batch":
+                        stats["wait_s"] / steps * 1e3,
+                    "host_ms_per_batch_hidden": hidden_ms,
+                    "alone_wall_ms_per_batch": pump_alone_ms[0],
+                    "alone_host_ms_per_batch": pump_alone_ms[1]},
+           "checkpoint": {"step": save_after, "bytes_written": ckpt_bytes,
+                          "snapshot_ms": snapshot_ms,
+                          "write_s": write_s,
+                          "save_to_commit_s": commit_s,
+                          "steps_after_save": steps - save_after,
+                          "steps_after_save_s": loop_after_save_s,
+                          "write_done_after_next_step": write_done_next,
+                          "restore_s": restore_s,
+                          "restored_tensors_differing": restored_diff,
+                          "resumed_step": resumed,
+                          "resumed_tensors_differing": resumed_diff},
+           "profile": prof}
     emit(out)
     return out
 
@@ -1361,8 +1600,9 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
-    if argv not in ([], ["kernel"], ["serve_7b"]):
-        print("usage: chip_smoke.py [kernel | serve_7b]", file=sys.stderr)
+    if argv not in ([], ["kernel"], ["serve_7b"], ["train"]):
+        print("usage: chip_smoke.py [kernel | serve_7b | train]",
+              file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
@@ -1373,6 +1613,10 @@ def main(argv) -> int:
     ).stdout.strip()
     if argv == ["serve_7b"]:
         phase_serve_7b()
+        print(smi, flush=True)
+        return 0
+    if argv == ["train"]:
+        phase_train(TransformerConfig.bench_400m())
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
@@ -1391,6 +1635,7 @@ def main(argv) -> int:
     s7 = phase_serve_7b()
     print(smi, flush=True)
     per_step = train["launches_per_step"]
+    wrappers = train["wrapper_counts_in_run"]
     int8_step = int8["decode_step"]
     main_bwd = kernel["bwd_cases"][0]
     emit({"kernels": [
@@ -1398,6 +1643,7 @@ def main(argv) -> int:
          "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:72",
          "launches": per_step["flash_fwd"],
+         "wrapper_count_in_train_run": wrappers["flash_fwd"],
          "max_abs_err": kernel["cases"][0]["max_abs_err"],
          "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
          "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
@@ -1407,6 +1653,7 @@ def main(argv) -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:158",
          "fuses": "delta = rowsum(dO*O), ray_tpu/ops/flash_attention.py:247",
          "launches": per_step["flash_bwd_dq"],
+         "wrapper_count_in_train_run": wrappers["flash_bwd_dq"],
          "max_abs_err": main_bwd["dq_max_abs_err"],
          "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_dq_plain_ms"],
          "bound_ms": kernel["bwd_dq_bound_ms"],
@@ -1416,6 +1663,7 @@ def main(argv) -> int:
          "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:197",
          "launches": per_step["flash_bwd_dkv"],
+         "wrapper_count_in_train_run": wrappers["flash_bwd_dkv"],
          "max_abs_err": max(main_bwd["dk_max_abs_err"],
                             main_bwd["dv_max_abs_err"]),
          "ms": kernel["bwd_dkv_ms"], "plain_ms": kernel["bwd_plain_ms"],

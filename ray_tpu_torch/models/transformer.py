@@ -379,7 +379,12 @@ def remat_wrap(layer_fn: Callable, config: TransformerConfig) -> Callable:
     dims (elementwise work is recomputed); "dots_attn" also saves the
     attention output. As in the reference, the flash custom-vjp's residuals
     (o, lse) are saved by none of them, so the forward kernel runs again in
-    the backward under every policy."""
+    the backward under every policy.
+
+    The RNG state is not saved for the recompute (``preserve_rng_state=
+    False``): the model draws no random numbers (no dropout), so the values
+    are the same, and a CUDA graph capture of the step may not read the
+    generator's state."""
     if not config.remat:
         return layer_fn
     if config.remat_policy == "full":
@@ -397,7 +402,8 @@ def remat_wrap(layer_fn: Callable, config: TransformerConfig) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():  # nothing to save for a backward
             return layer_fn(*args)
-        return checkpoint(layer_fn, *args, use_reentrant=False, **kw)
+        return checkpoint(layer_fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
 
     return wrapped
 

@@ -19,6 +19,13 @@ tensor maps that the C entry points build per call over the operands as
 they lie (``csrc/hopper.cuh``); the fp32 kernels read through strides with
 plain loads.
 
+The launches may be captured into a CUDA graph (the train step is): the
+entry points copy the strides and the tensor maps into the kernels'
+by-value parameters, so a replay reads no host memory, only the operands'
+device memory, which a graph's pool keeps at fixed addresses; and each
+kernel's shared-memory limit is set once per device, at its first,
+uncaptured launch (``flash_common.cuh``).
+
 ``flash_attention`` is differentiable: with gradients enabled and an input
 that requires grad it goes through ``_FlashAttention``, the counterpart of
 ``custom_vjp``, which saves (q, k, v, o, lse) and runs both backward kernels.

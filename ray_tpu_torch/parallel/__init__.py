@@ -4,6 +4,7 @@ ported from ``ray_tpu.parallel.train_step`` (one device; no mesh yet)."""
 from ray_tpu_torch.parallel.train_step import (  # noqa: F401
     ClippedAdamW,
     TrainState,
+    TrainStep,
     default_optimizer,
     make_sharded_state,
     make_train_step,

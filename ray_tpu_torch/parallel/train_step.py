@@ -6,10 +6,13 @@ Port of ``ray_tpu/parallel/train_step.py`` without the mesh: ``TrainState``,
 autograd, clips them by their global norm, and applies AdamW, all on the
 card and without a host sync: its metrics stay device tensors.
 
-Where JAX donates the state to the jitted step (``donate_argnums``), the port
-updates parameters and optimizer state in place: ``step`` returns the state
-it was given. Sharding over a mesh (DP/FSDP/TP) waits for the port's
-``parallel/mesh.py``.
+Where JAX donates the state to a jitted step (``donate_argnums``, :133-139),
+the port updates parameters, optimizer state and ``step`` in place, and on
+CUDA runs the whole step as one captured program: the first call with a
+batch of new shapes is a real step run eagerly (the warm-up), the next one
+captures a CUDA graph of the step and replays it, and every later call
+copies its batch into the graph's static buffers and replays. Sharding over
+a mesh (DP/FSDP/TP) waits for the port's ``parallel/mesh.py``.
 """
 
 from __future__ import annotations
@@ -53,10 +56,14 @@ class ClippedAdamW:
 
     def init(self, params: Dict) -> torch.optim.AdamW:
         # torch's AdamW multiplies p by (1 - lr wd) and then subtracts
-        # lr m_hat / (sqrt(v_hat) + eps): the same update as optax's.
+        # lr m_hat / (sqrt(v_hat) + eps): the same update as optax's. On
+        # CUDA it is capturable: its step count and bias corrections live on
+        # the card, so a CUDA graph of the step can hold them.
+        leaves = tree_leaves(params)
         return torch.optim.AdamW(
-            tree_leaves(params), lr=self.lr, betas=(self.B1, self.B2),
-            eps=self.EPS, weight_decay=self.weight_decay, foreach=True)
+            leaves, lr=self.lr, betas=(self.B1, self.B2), eps=self.EPS,
+            weight_decay=self.weight_decay, foreach=True,
+            capturable=all(p.device.type == "cuda" for p in leaves))
 
     def clip_(self, grads) -> torch.Tensor:
         """Scales ``grads`` in place as ``clip_by_global_norm`` does and
@@ -115,16 +122,17 @@ def make_train_step(
     optimizer: ClippedAdamW,
     loss: Callable = loss_fn,
     grads_fn: Optional[Callable] = None,
-) -> Callable[[TrainState, Dict[str, torch.Tensor]],
-              Tuple[TrainState, Dict]]:
+) -> "TrainStep":
     """(state, batch) -> (state, metrics), updating the state in place.
 
     ``loss(params, batch, config)`` is differentiated by autograd unless
     ``grads_fn(params, batch) -> (loss, grads)`` is given (a schedule with a
     hand-written backward). ``metrics`` = {loss, grad_norm (of the raw
-    grads, before clipping), step}, all device tensors."""
+    grads, before clipping), step}: device tensors of their own at every
+    call. On CUDA the step runs as one captured program (``TrainStep``); on
+    the CPU it runs eagerly."""
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def body(state: TrainState, batch: Dict[str, torch.Tensor]):
         leaves = tree_leaves(state.params)
         if grads_fn is not None:
             loss_val, grads = grads_fn(state.params, batch)
@@ -137,8 +145,130 @@ def make_train_step(
         state.opt_state.step()
         for p in leaves:
             p.grad = None  # next step's backward starts from no grads
-        state.step = state.step + 1
-        return state, {"loss": loss_val.detach(), "grad_norm": grad_norm,
-                       "step": state.step}
+        state.step.add_(1)
+        return loss_val.detach(), grad_norm
 
-    return step
+    return TrainStep(body)
+
+
+@dataclasses.dataclass
+class _Program:
+    """One captured step: its graph, the static batch buffers it reads, and
+    the static loss and grad norm it writes."""
+
+    graph: "torch.cuda.CUDAGraph"
+    batch: Dict[str, torch.Tensor]
+    loss: torch.Tensor
+    grad_norm: torch.Tensor
+
+
+class TrainStep:
+    """The step ``make_train_step`` returns: ``step(state, batch)`` runs
+    exactly one step on ``state`` and returns (state, metrics).
+
+    A step serves one ``TrainState``, the one of its first call, and raises
+    for any other: on CUDA its programs hold that state's memory. On the CPU
+    every call runs the step eagerly. On CUDA, per batch signature (keys,
+    shapes and dtypes): the first call runs the step eagerly on a side
+    stream (the warm-up: it builds the kernels and the optimizer's state);
+    the second captures a CUDA graph of the step (capture runs nothing) and
+    replays it once; every later call copies the batch into that graph's
+    static buffers and replays it. All graphs share one memory pool, which
+    holds the step's activations and grads (never more than one step runs
+    at a time). A failed capture raises; nothing falls back to the eager
+    step. ``eager`` runs one step eagerly whatever the device (what the
+    warm-up runs), to hold a captured step against it."""
+
+    def __init__(self, body: Callable):
+        self._body = body
+        self._state: Optional[TrainState] = None
+        self._bound: Tuple = ()
+        self._warm: set = set()
+        self._programs: Dict[Tuple, _Program] = {}
+        self._pool = None
+        self._side = None
+        self.captures = 0  # graphs captured
+        self.replays = 0  # graph replays, the capturing call's included
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        self._bind(state)
+        if state.step.device.type == "cuda":
+            loss_val, grad_norm = self._on_cuda(state, batch)
+        else:
+            loss_val, grad_norm = self._body(state, batch)
+        return state, _metrics(loss_val, grad_norm, state.step)
+
+    def eager(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """One step run eagerly on the current stream, as the warm-up runs
+        it (on any state: no program is involved)."""
+        loss_val, grad_norm = self._body(state, batch)
+        return state, _metrics(loss_val, grad_norm, state.step)
+
+    def _bind(self, state: TrainState) -> None:
+        bound = (state, state.step, state.opt_state,
+                 *tree_leaves(state.params))
+        if self._state is None:
+            self._state, self._bound = state, bound
+            return
+        if len(bound) != len(self._bound) or any(
+                a is not b for a, b in zip(bound, self._bound)):
+            raise ValueError(
+                "this train step serves the TrainState of its first call "
+                "(its programs hold that state's memory); make another step "
+                "with make_train_step for another state")
+
+    def _on_cuda(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        dev = state.step.device
+        key = tuple(sorted((k, tuple(v.shape), v.dtype)
+                           for k, v in batch.items()))
+        with torch.cuda.device(dev):
+            if key not in self._warm:
+                out = self._warm_up(state, batch, dev)
+                self._warm.add(key)
+                return out
+            program = self._programs.get(key)
+            if program is None:
+                program = self._programs[key] = self._capture(state, batch,
+                                                              dev)
+            for k, buf in program.batch.items():
+                buf.copy_(batch[k], non_blocking=True)
+            program.graph.replay()
+            self.replays += 1
+            return program.loss, program.grad_norm
+
+    def _warm_up(self, state, batch, dev):
+        """The step run eagerly on a side stream, as ``LLMEngine`` warms its
+        programs before capture; the current stream then waits for it."""
+        cur = torch.cuda.current_stream(dev)
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+            for v in batch.values():
+                v.record_stream(self._side)
+            out = self._body(state, batch)
+        cur.wait_stream(self._side)
+        return out
+
+    def _capture(self, state, batch, dev) -> _Program:
+        """Captures one step over static batch buffers. Thread-local capture
+        mode: a batch pump's thread may pin memory and copy on its own
+        stream meanwhile."""
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                  for k, v in batch.items()}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            loss_val, grad_norm = self._body(state, static)
+        self.captures += 1
+        return _Program(graph, static, loss_val, grad_norm)
+
+
+def _metrics(loss_val, grad_norm, step) -> Dict[str, torch.Tensor]:
+    """Fresh copies, so that a later step (a graph replay over the same
+    static outputs) cannot change metrics a caller kept."""
+    return {"loss": loss_val.clone(), "grad_norm": grad_norm.clone(),
+            "step": step.clone()}

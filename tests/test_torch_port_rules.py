@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch.data import iterator
 from ray_tpu_torch.models import convert, generation, quant, transformer
 from ray_tpu_torch.parallel import train_step
 from ray_tpu_torch.serve import llm
@@ -49,7 +50,9 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
     mods = _port_modules() + ["chip_smoke"]
     assert {"ray_tpu_torch.serve.llm",
             "ray_tpu_torch.parallel.train_step",
-            "ray_tpu_torch.ops.int8_matmul"} <= set(mods)
+            "ray_tpu_torch.ops.int8_matmul",
+            "ray_tpu_torch.data.iterator",
+            "ray_tpu_torch.train.sharded_checkpoint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,7 +71,9 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
 def test_the_scan_covers_every_kernel_module():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"ray_tpu_torch/ops/int8_matmul.py",
-            "ray_tpu_torch/ops/flash_attention.py"} <= names
+            "ray_tpu_torch/ops/flash_attention.py",
+            "ray_tpu_torch/data/iterator.py",
+            "ray_tpu_torch/train/sharded_checkpoint.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -102,6 +107,7 @@ ENTRY_POINTS = {
         transformer.init_params(_tiny(), 0, device="cpu"), _tiny()),
     "make_sharded_state": lambda: train_step.make_sharded_state(
         _tiny(), train_step.default_optimizer(), 0),
+    "device_batches": lambda: iterator.device_batches(lambda: iter([]), 1),
 }
 
 

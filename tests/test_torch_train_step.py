@@ -65,11 +65,13 @@ def _jax_run(jcfg, batch, steps):
     return init, metrics, jax.tree.map(np.asarray, state.params)
 
 
-def _torch_run(tcfg, init, batch, steps):
+def _torch_run(tcfg, init, batch, steps, capturable=False):
     opt = tts.default_optimizer()
     state, _ = tts.make_sharded_state(
         tcfg, opt, seed=0, device="cpu",
         params=params_from_numpy(init, device="cpu"))
+    if capturable:  # as on CUDA (the caller lets torch take the CPU)
+        state.opt_state.param_groups[0]["capturable"] = True
     step = tts.make_train_step(tcfg, opt)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     metrics = []
@@ -207,3 +209,157 @@ def test_default_optimizer_matches_the_reference_defaults():
     group = adamw.param_groups[0]
     assert (group["betas"], group["eps"], group["weight_decay"]) == (
         (0.9, 0.95), 1e-8, 0.01)
+
+
+def _capturable_on_cpu(monkeypatch):
+    """torch runs capturable Adam only on accelerators; its math is plain
+    tensor code, so the CPU can run it once torch lets it."""
+    import torch.optim.adam as adam
+
+    real = adam._get_capturable_supported_devices
+    monkeypatch.setattr(adam, "_get_capturable_supported_devices",
+                        lambda supports_xla=True: [*real(supports_xla),
+                                                   "cpu"])
+
+
+@pytest.mark.parametrize("dtype_name,kw", [
+    ("float32", {}),
+    ("float32", {"remat": True, "remat_policy": "dots"}),
+], ids=["fp32_flash", "fp32_flash_remat_dots"])
+def test_capturable_adamw_steps_match_jax(monkeypatch, dtype_name, kw):
+    """N calls with AdamW capturable (step count and bias corrections as
+    tensors, as the step runs on CUDA) equal N optax steps, at the fp32
+    tolerances above."""
+    _capturable_on_cpu(monkeypatch)
+    jcfg, tcfg = _configs(dtype_name, attn_impl="flash", **kw)
+    batch = _batch(jcfg.vocab_size)
+    init, jmetrics, jparams = _jax_run(jcfg, batch, STEPS)
+    state, tmetrics = _torch_run(tcfg, init, batch, STEPS, capturable=True)
+    assert state.opt_state.param_groups[0]["capturable"]
+    st = next(iter(state.opt_state.state.values()))
+    assert float(st["step"]) == STEPS and st["step"].dim() == 0
+    np.testing.assert_allclose(tmetrics, jmetrics, rtol=1e-5)
+    _assert_params_close(params_to_numpy(state.params), jparams, 2e-5)
+
+
+def test_adamw_is_capturable_only_on_cuda():
+    _, tcfg = _configs("float32")
+    state, _ = tts.make_sharded_state(tcfg, tts.default_optimizer(), seed=0,
+                                      device="cpu")
+    assert state.opt_state.param_groups[0]["capturable"] is False
+
+
+def _tiny_step(seed=0):
+    _, tcfg = _configs("float32")
+    opt = tts.default_optimizer()
+    state, _ = tts.make_sharded_state(tcfg, opt, seed=seed, device="cpu")
+    return tcfg, state, tts.make_train_step(tcfg, opt)
+
+
+def test_metrics_are_fresh_tensors_that_keep_their_values():
+    tcfg, state, step = _tiny_step()
+    tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg.vocab_size).items()}
+    kept = [step(state, tb)[1] for _ in range(3)]
+    values = [(m["loss"].item(), m["grad_norm"].item(), int(m["step"]))
+              for m in kept]
+    step(state, tb)  # a later call changes no metric kept before
+    assert [(m["loss"].item(), m["grad_norm"].item(), int(m["step"]))
+            for m in kept] == values
+    assert [v[2] for v in values] == [1, 2, 3]
+    for k in ("loss", "grad_norm", "step"):
+        ptrs = {m[k].data_ptr() for m in kept}
+        assert len(ptrs) == 3, k
+    assert all(m["step"] is not state.step for m in kept)
+
+
+def test_state_step_advances_in_place():
+    tcfg, state, step = _tiny_step()
+    tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg.vocab_size).items()}
+    step_t = state.step
+    for n in range(1, 4):
+        step(state, tb)
+        assert state.step is step_t and int(step_t) == n
+        assert step_t.dtype == torch.int32
+
+
+def test_another_state_raises_and_a_new_batch_shape_runs():
+    tcfg, state, step = _tiny_step()
+    tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg.vocab_size).items()}
+    step(state, tb)
+    small = {k: torch.from_numpy(v)
+             for k, v in _batch(tcfg.vocab_size, b=2, s=16).items()}
+    _, m = step(state, small)  # another shape: one more step on this state
+    assert int(m["step"]) == 2 and np.isfinite(m["loss"].item())
+    _, other, _ = _tiny_step(seed=1)
+    with pytest.raises(ValueError, match="TrainState of its first call"):
+        step(other, tb)
+    # the same object with a parameter replaced is another state too
+    state.params["embed"] = state.params["embed"].detach().clone()
+    with pytest.raises(ValueError, match="TrainState of its first call"):
+        step(state, tb)
+    assert int(state.step) == 2
+    tts.make_train_step(tcfg, tts.default_optimizer()).eager(other, tb)
+    assert int(other.step) == 1  # eager serves any state
+
+
+class _FakeGraph:
+    """Stands in for a CUDA graph on the CPU: records no work at capture,
+    reruns the step over the static buffers at replay, and writes its loss
+    and grad norm into the same static tensors, as a replay does."""
+
+    def __init__(self, body, state, batch):
+        self.body, self.state, self.batch = body, state, batch
+        self.loss, self.grad_norm = torch.zeros(()), torch.zeros(())
+
+    def replay(self):
+        loss, norm = self.body(self.state, self.batch)
+        self.loss.copy_(loss)
+        self.grad_norm.copy_(norm)
+
+
+def test_cuda_calls_warm_up_then_capture_then_replay(monkeypatch):
+    """The CUDA sequence, per batch signature, on the CPU with the graph
+    faked: call 1 runs eagerly (the warm-up), call 2 captures and replays
+    once, later calls replay; every call is one step, its batch copied into
+    the static buffers, and its metrics its own."""
+    import contextlib
+
+    tcfg, state, step = _tiny_step()
+    events = []
+
+    def warm_up(st, batch, dev):
+        events.append("warm")
+        return step._body(st, batch)
+
+    def capture(st, batch, dev):
+        events.append("capture")
+        static = {k: torch.empty_like(v) for k, v in batch.items()}
+        graph = _FakeGraph(step._body, st, static)
+        step.captures += 1
+        return tts._Program(graph, static, graph.loss, graph.grad_norm)
+
+    monkeypatch.setattr(step, "_warm_up", warm_up)
+    monkeypatch.setattr(step, "_capture", capture)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    ref_cfg, ref, ref_step = _tiny_step()
+    batches = [{k: torch.from_numpy(v) for k, v in
+                _batch(tcfg.vocab_size, seed=i).items()} for i in range(4)]
+    got, want = [], []
+    for i in range(6):
+        b = batches[i % 4]
+        got.append(step._on_cuda(state, b))
+        got[-1] = tts._metrics(*got[-1], state.step)
+        want.append(ref_step(ref, b)[1])
+    assert events == ["warm", "capture"]
+    assert step.captures == 1 and step.replays == 5
+    for g, w in zip(got, want):
+        assert g["loss"].item() == w["loss"].item()
+        assert g["grad_norm"].item() == w["grad_norm"].item()
+    assert [int(g["step"]) for g in got] == [1, 2, 3, 4, 5, 6]
+    small = {k: torch.from_numpy(v)
+             for k, v in _batch(tcfg.vocab_size, b=2, s=16).items()}
+    step._on_cuda(state, small)
+    step._on_cuda(state, small)
+    assert events == ["warm", "capture", "warm", "capture"]
+    assert len(step._programs) == 2 and int(state.step) == 8
