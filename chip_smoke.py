@@ -4,12 +4,13 @@
     timeout 300 python3 chip_smoke.py kernel   # the kernel phases only
     timeout 600 python3 chip_smoke.py serve_7b # the serve_7b phase only
     timeout 600 python3 chip_smoke.py train    # the train phase only
+    timeout 600 python3 chip_smoke.py inference  # the inference phase only
 
-Run from the repo root on a machine with one CUDA card. Seven phases; any
+Run from the repo root on a machine with one CUDA card. Nine phases; any
 failure raises and the script exits non-zero without a result line. With
-the argument ``kernel`` (or ``serve_7b``, or ``train``) it runs the kernel
-phases (or that phase) alone and prints no result line: the first call
-after a kernel (or that path) changes, under ``timeout``.
+the argument ``kernel`` (or ``serve_7b``, ``train``, ``inference``) it runs
+the kernel phases (or that phase) alone and prints no result line: the
+first call after a kernel (or that path) changes, under ``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -29,11 +30,24 @@ after a kernel (or that path) changes, under ``timeout``.
    pre-dequantized weights) per shape, per decode step and per prefill;
    ptxas's registers and spills of the int8 kernels, and each shape's
    launch plan (K split, ring stages, wgmma N, workspace).
-3. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
+3. decode_kernel: ``decode_attention`` against its plain version under
+   ``DECODE_RTOL``, in bf16 and fp32, at D 16, 64, 96, 128, 192 and 256,
+   n_rep 1, 2 and 4, B * Hkv above and below 132, with and without the self
+   column, at lengths 0 (self alone), 1, the kernels' tile and chunk edges,
+   S_max - 1, S_max and past it; in every case the rows at or past a slot's
+   length set to NaN, and to zeros, give the same output bit for bit, and so
+   does a second launch. Then at the main paths' own shapes (serve_7b's
+   engine step: 8 slots at position 160 of 512, self column; bench.py's
+   inference leg: lengths 1025..1088 of 1089; the 400M engine's step: 8
+   slots at 300 of 1024, self column), each with one more call at ragged
+   per-slot lengths: the kernel against its plain version on the same
+   operands in bf16 and fp32, and device times inside CUDA graphs (kernel,
+   plain version, SDPA with a boolean mask, bound) per call and per step.
+4. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
    the logits must agree with the dense-attention forward.
-4. train: ``bench_400m`` (remat "dots", flash) trained as the reference's
+5. train: ``bench_400m`` (remat "dots", flash) trained as the reference's
    loops train it: seeded numpy batches [8, 2048] (a cycle of 4) through
    the port's pump (``data.device_batches``) into ``make_train_step``,
    which runs step 1 eagerly (warm-up), captures step 2 as one CUDA graph
@@ -50,28 +64,45 @@ after a kernel (or that path) changes, under ``timeout``.
    of a replay, peak memory eager and captured, eager step ms, the pump's
    prefetch and hidden host time, and the checkpoint's bytes, snapshot ms,
    write and restore seconds.
-5. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
+6. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
    at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
    bf16 train steps' losses and grad norms, flash against dense (step 1
    held to a tolerance, the rest reported).
-6. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
+7. inference: bench.py's inference leg (``measure_inference``) on the port:
+   ``bench_400m`` with dense attention, no remat, bf16, 8 prompts of 1024
+   tokens, 64 new tokens, max_len 1089. ``prefill`` (TTFT) and
+   ``decode_loop`` (decode tokens/s) timed at the second call of each, the
+   first having captured its programs; the timed loop runs no eager decode
+   step and replays its captured blocks of steps, whose graphs and a
+   profiled replay hold one decode attention call per layer per step (24).
+   The first and second calls of a 256- and a 1023-step loop are timed
+   (capture cost and memory). The captured ``generate`` must give the same
+   greedy tokens as its bodies run uncaptured on the card; in float32 with
+   TF32 off, the engine's decode program, captured with
+   ``RAYTPU_DECODE_DEFERRED_WRITES`` unset and set, gives ``generate``'s
+   tokens (the two structures bit for bit alike).
+8. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
    greedy requests from client threads through its CUDA graphs (graph
-   replays > 0, no decode step run eagerly during the traffic); one
+   replays > 0, no decode step run eagerly during the traffic, one decode
+   attention launch per layer per decode step); one
    temperature-1 request twice gives the same tokens; the sampler's hash
    bits equal on the CPU and the card; a decode block replayed from a graph
    and run eagerly, each profiled; then, in float32 with TF32 off, the
    engine's greedy tokens for 3 interleaved prompts must EQUAL
    ``generate``'s.
-7. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
+9. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
    heads x 128, full width and depth) from ``init_params_int8`` on the card
    (weight bytes and peak memory printed), served through ``LLMEngine``'s
    graphs at bench.py's shape (8 slots, max_len 512, prefill bucket 128,
    blocks of 8 steps): 8 concurrent greedy requests of 128-token prompts
    and 64 new tokens (TTFT median and max, decode tokens/s with 8 slots
    active), the same graph and sampling checks as serve, int8_matmul
-   launches per decode step counted over the graphs' replays (6 per layer),
+   launches per decode step counted over the graphs' replays (6 per layer)
+   and decode attention launches (1 per layer),
    and the profiled decode blocks (graph and eager; device time by kind;
-   the plain dequant's time per step, which the kernel took off the path);
+   the graph's block also captured with ``RAYTPU_DECODE_DEFERRED_WRITES=1``
+   and timed in turns with the default; the plain dequant's time per step,
+   which the kernel took off the path);
    the same on bf16 weights of the same init (no int8 launch). Checks: 8
    valid 64-token streams each time; in float32 with TF32 off, the engine's
    greedy tokens EQUAL ``generate``'s on the int8 weights at full depth
@@ -81,9 +112,10 @@ after a kernel (or that path) changes, under ``timeout``.
    phase reports ``flash_launches`` 0.
 
 Prints one JSON line per phase, the card's name and power limit (as
-nvidia-smi reports them), a ``kernels`` JSON line (four kernels; the int8
-kernel's numbers are per serve_7b decode step, with its per-prefill time
-and bound beside them), and as its last line
+nvidia-smi reports them), a ``kernels`` JSON line (five kernels; the int8
+and decode attention kernels' numbers are per serve_7b decode step, with
+the int8 kernel's per-prefill time and the decode attention kernel's per
+inference-leg step beside them), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports no JAX and nothing of the JAX package.
 """
@@ -139,12 +171,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 # Kinds of kernel in a decode step, matched in order on the full kernel
-# name: the int8 weight-only matmul kernel; dtype conversions (the plain
-# dequant's int8 -> bf16 and the cached attention's bf16 -> fp32 among
-# them), products by a broadcast scale and other elementwise multiplies,
-# matrix products (cuBLAS's nvjet and gemv kernels).
-DECODE_KINDS = {"int8_matmul": "int8_mm", "copy_convert": "direct_copy_kernel",
+# name: the decode attention kernels (three per call: scores, pv, finish);
+# the int8 weight-only matmul kernel; dtype conversions (the plain dequant's
+# int8 -> bf16 among them), products by a broadcast scale and other
+# elementwise multiplies, matrix products (cuBLAS's nvjet and gemv kernels).
+DECODE_KINDS = {"decode_attention": "decode_(scores|pv|finish)_kernel",
+                "int8_matmul": "int8_mm", "copy_convert": "direct_copy_kernel",
                 "mul": "MulFunctor", "gemm": "gemm|gemv|nvjet|xmma|cutlass"}
+# Kernels per decode_attention call (csrc/decode_attention.cu).
+DECODE_ATTENTION_KERNELS = 3
 
 
 def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
@@ -582,21 +617,20 @@ def compare_int8(im, gen, m, k, n, dtype) -> dict:
 
 def graph_ms(fn, args, reps: int = 10) -> float:
     """Device ms per call of ``fn(*a)`` for a in ``args``: one pass over
-    ``args`` captured in a CUDA graph (after a warm-up pass on a side
-    stream) and replayed ``reps`` times, by CUDA events. No host time is in
-    it, as none is in a served decode step."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    ``args`` captured in a CUDA graph (``ray_tpu_torch.graphs``: a warm-up
+    pass on a side stream, then the capture) and replayed ``reps`` times,
+    by CUDA events. No host time is in it, as none is in a served decode
+    step."""
+    from ray_tpu_torch import graphs
+
+    def one_pass():
         for a in args:
             fn(*a)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for a in args:
-            fn(*a)
-    ms = cuda_ms(graph.replay, reps, warmup=1) / len(args)
-    del graph
+
+    graphs.warm_up(one_pass, torch.device("cuda", torch.cuda.current_device()))
+    cap = graphs.capture(one_pass)
+    ms = cuda_ms(cap.graph.replay, reps, warmup=1) / len(args)
+    del cap
     return ms
 
 
@@ -697,6 +731,276 @@ def phase_int8_kernel() -> dict:
            "prefill_step": per_step(INT8_MS[1])}
     check(all(times[(k, n, INT8_MS[0])]["bound_by"] == "bytes"
               for k, n in distinct), "decode products are bound by bytes")
+    emit(out)
+    return out
+
+
+# The decode attention kernel against its plain version (dense fp32 scores
+# over the whole cache, fp32 softmax, p rounded to the dtype, the output
+# rounded once, the self term added in the dtype), per element, with
+# T = sum_j p_j |v_j| + p_self |v_new| (the plain version's fp32
+# probabilities applied to |v|):
+# - bf16: both take the same fp32 scores and softmax up to the order of
+#   their sums and expf, so a p may round to the neighbouring bf16 value
+#   (2^-7 relative at most), which moves the prefix sum by 2^-7 T at most;
+#   the prefix, the self product and their sum are each rounded to bf16
+#   (2^-8 relative on each side). Derived: about 2^-6 (T + max(|got|,
+#   |ref|)); allowed twice that.
+# - fp32: only the order of the sums (up to S_max + 1 = 1090 terms, D = 256
+#   products) and expf differ, each sum within n 2^-24 of its terms' sum:
+#   under 2^-13 (T + max(|got|, |ref|)); allowed 2^-12.
+DECODE_RTOL = {torch.bfloat16: 2.0 ** -5, torch.float32: 2.0 ** -12}
+DECODE_HEAD_DIMS = (16, 64, 96, 128, 192, 256)
+DECODE_S_MAX = 300
+# serve_7b's engine step (8 slots at position 160 of 512, 32 heads of 128,
+# the self column) and bench.py's inference leg on bench_400m (8 sequences
+# at positions 1024..1087 of a 1089-row cache, 8 heads of 128, no self
+# column: lengths 1025..1088).
+# ``ragged``: one more call with the slots at different lengths, as the
+# engine's slots are (serve_7b's traffic decodes positions 128..191; the
+# 400M engine's prompts are 64..500 tokens long, and it decodes 32 more).
+DECODE_SERVE_7B = {"b": 8, "h": 32, "s_max": 512, "d": 128, "layers": 32,
+                   "lengths": [160], "self": True,
+                   "ragged": [128, 137, 146, 155, 164, 173, 182, 191]}
+DECODE_INFERENCE = {"b": 8, "h": 8, "s_max": 1089, "d": 128, "layers": 24,
+                    "lengths": list(range(1025, 1089)), "self": False,
+                    "ragged": [1025, 1034, 1043, 1052, 1061, 1070, 1079,
+                               1088]}
+# the 400M engine's step (serve phase: 8 slots, a 1024-row cache, the self
+# column; ``graph_decode_profile`` decodes at position 300)
+DECODE_ENGINE_400M = {"b": 8, "h": 8, "s_max": 1024, "d": 128, "layers": 24,
+                      "lengths": [300], "self": True,
+                      "ragged": [64, 131, 198, 265, 332, 399, 466, 532]}
+
+
+def decode_lengths(s_max: int, self_col: bool) -> list:
+    """Per-slot lengths at the edges the kernels cut at: none (the self
+    column alone), one row, around every multiple of 64 (the plan's chunks
+    are multiples of 64 rows, the pv kernel's tiles 128), the last rows, and
+    past the cache (clamped)."""
+    edges = {1, s_max - 1, s_max, s_max + 7}
+    for c in range(64, s_max, 64):
+        edges |= {c - 1, c, c + 1}
+    return ([0] if self_col else []) + sorted(edges)
+
+
+def decode_operands(gen, b, h, hkv, s_max, d, dtype) -> tuple:
+    """q, the caches, k_new and v_new ~ N(0, 1) in ``dtype`` on the card."""
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return (t(b, 1, h, d), t(b, s_max, hkv, d), t(b, s_max, hkv, d),
+            t(b, 1, hkv, d), t(b, 1, hkv, d))
+
+
+def decode_error(da, q, k, v, lengths, new) -> tuple:
+    """The kernel's output at these operands, its error against the plain
+    version, and the error's bound (``DECODE_RTOL`` of the sum of the
+    terms' magnitudes plus the larger output)."""
+    got = da.decode_attention(q, k, v, lengths, *new)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_reference(q, k, v, lengths, *new)
+    terms = da.decode_attention_reference(
+        q.float(), k.float(), v.float().abs(), lengths,
+        *((new[0].float(), new[1].float().abs()) if new else ()))
+    gf, rf = got.float(), ref.float()
+    bound = DECODE_RTOL[q.dtype] * (terms + torch.maximum(gf.abs(),
+                                                          rf.abs()))
+    return got, (gf - rf).abs(), bound
+
+
+def compare_decode(da, gen, b_extra, h, n_rep, d, dtype) -> dict:
+    """The kernel against its plain version with and without the self
+    column, at every length of ``decode_lengths`` (one slot each, plus
+    ``b_extra`` slots at S_max / 2); then stale rows: the rows at or past
+    each slot's length set to NaN, and to zeros, give the kernel's output
+    bit for bit; a second launch too."""
+    hkv = h // n_rep
+    case = {"h": h, "kv_heads": hkv, "d": d, "s_max": DECODE_S_MAX,
+            "dtype": str(dtype).removeprefix("torch."),
+            "rtol": DECODE_RTOL[dtype]}
+    for self_col in (True, False):
+        lens = decode_lengths(DECODE_S_MAX, self_col)
+        lens += [DECODE_S_MAX // 2] * b_extra
+        b = len(lens)
+        q, k, v, kn, vn = decode_operands(gen, b, h, hkv, DECODE_S_MAX, d,
+                                          dtype)
+        lengths = torch.tensor(lens, device="cuda")
+        new = (kn, vn) if self_col else ()
+        got, err, bound = decode_error(da, q, k, v, lengths, new)
+        gf = got.float()
+        key = "self" if self_col else "no_self"
+        plan = da.launch_plan(b, h, hkv, DECODE_S_MAX, d)
+        case[key] = {"batch": b, "kv_rows": b * hkv,
+                     "chunks": [plan.n_chunks, plan.chunk_rows],
+                     "max_abs_err": err.max().item(),
+                     "max_err_over_bound":
+                         (err / bound.clamp_min(1e-30)).max().item()}
+        check(got.shape == q.shape and got.dtype == dtype
+              and bool(torch.isfinite(gf).all()),
+              f"decode_attention output of the wrong shape, dtype or not "
+              f"finite: {case}")
+        check(bool((err <= bound).all()),
+              f"decode_attention disagrees with its plain version: {case}")
+        rows = torch.arange(DECODE_S_MAX, device="cuda")
+        stale = (rows[None, :] >= lengths.clamp(max=DECODE_S_MAX)[:, None])
+        stale = stale[:, :, None, None]
+        outs = [da.decode_attention(q, k.masked_fill(stale, fill),
+                                    v.masked_fill(stale, fill), lengths,
+                                    *new)
+                for fill in (float("nan"), 0.0)]
+        outs.append(da.decode_attention(q, k, v, lengths, *new))
+        check(all(torch.equal(o, got) for o in outs),
+              f"decode_attention read a stale row or differs between "
+              f"launches: {case}")
+    return case
+
+
+def decode_bound_ms(shape: dict, dtype=torch.bfloat16) -> tuple:
+    """The least time the card could take for one call at ``shape``, per
+    call averaged over its lengths: q, the valid K and V rows, k_new and
+    v_new read once and the output written once over the memory rate,
+    against the products (q.k and p.v, 2 D each per head and row, the self
+    column included) over the peak rate for the type."""
+    b, h, d, s_max = shape["b"], shape["h"], shape["d"], shape["s_max"]
+    elem = torch.finfo(dtype).bits // 8
+    rows = np.mean([min(n, s_max) for n in shape["lengths"]])
+    cols = rows + (1 if shape["self"] else 0)
+    nbytes = (2 * b * h * d * elem + 2 * b * rows * h * d * elem + 8 * b
+              + (2 * b * h * d * elem if shape["self"] else 0))
+    flops = 4 * d * b * h * cols
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), nbytes
+
+
+def check_at_main_shape(da, q, calls, new, ragged) -> dict:
+    """The kernel against its plain version at a main path's own operands:
+    every call of ``calls`` (each length of the shape, each on a layer of
+    its own) and one with the slots at the ``ragged`` lengths, in bf16 as
+    the path runs and in fp32 (the same operands, widened; what the fp32
+    engine = ``generate`` checks run), within ``DECODE_RTOL``."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, max_err = 0.0, 0.0
+        for k, v, n in calls + [(calls[0][0], calls[0][1], ragged)]:
+            ops = [t.to(dtype) for t in (q, k, v, *new)]
+            got, err, bound = decode_error(da, *ops[:3], n, tuple(ops[3:]))
+            check(bool(torch.isfinite(got.float()).all())
+                  and bool((err <= bound).all()),
+                  f"decode_attention disagrees with its plain version at a "
+                  f"main path's shape ({dtype}, lengths {n.tolist()})")
+            worst = max(worst, (err / bound.clamp_min(1e-30)).max().item())
+            max_err = max(max_err, err.max().item())
+        out[str(dtype).removeprefix("torch.")] = {
+            "calls": len(calls) + 1, "max_abs_err": max_err,
+            "max_err_over_bound": worst}
+    return out
+
+
+def decode_times(da, gen, shape: dict) -> dict:
+    """At ``shape``, the kernel held against its plain version on the same
+    operands (``check_at_main_shape``), then device times per call
+    (``graph_ms``: a pass over every layer's own cache, at each of the
+    shape's lengths in turn, so each call finds its rows in device memory
+    as a decode step does) of the kernel, its plain version and
+    ``scaled_dot_product_attention`` with a boolean mask over the same rows
+    (the self column as a written row; None with the reason where this
+    torch cannot take it in a graph), beside the bound; and the same per
+    decode step (one call per layer)."""
+    b, h, d, s_max = shape["b"], shape["h"], shape["d"], shape["s_max"]
+    layers = shape["layers"]
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    cache = randn(2, layers, b, s_max, h, d)
+    q, kn, vn = randn(b, 1, h, d), randn(b, 1, h, d), randn(b, 1, h, d)
+    new = (kn, vn) if shape["self"] else ()
+    pos = torch.arange(s_max, device="cuda")
+    extra = 1 if shape["self"] else 0
+    lens = [torch.full((b,), n, device="cuda") for n in shape["lengths"]]
+    masks = [(pos[None, :] < n[:, None] + extra)[:, None, None] for n in lens]
+    n_calls = max(layers, len(lens))
+    calls = [(cache[0, i % layers], cache[1, i % layers], lens[i % len(lens)])
+             for i in range(n_calls)]
+    ragged = torch.tensor(shape["ragged"], device="cuda")
+    out = {"shape": {k: v for k, v in shape.items() if k != "lengths"},
+           "lengths": [shape["lengths"][0], shape["lengths"][-1]],
+           "vs_plain": check_at_main_shape(da, q, calls, new, ragged),
+           "kernel_ms_per_call": graph_ms(
+               lambda k, v, n: da.decode_attention(q, k, v, n, *new), calls),
+           "plain_ms_per_call": graph_ms(
+               lambda k, v, n: da.decode_attention_reference(q, k, v, n,
+                                                             *new),
+               calls[:2], reps=3)}
+    qt = q.transpose(1, 2)
+    lib = [(k.transpose(1, 2), v.transpose(1, 2), masks[i % len(masks)])
+           for i, (k, v, _) in enumerate(calls[:4])]
+    try:
+        out["library_ms_per_call"] = graph_ms(
+            lambda k, v, m: torch.nn.functional.scaled_dot_product_attention(
+                qt, k, v, attn_mask=m), lib, reps=5)
+    except RuntimeError as e:
+        out["library_ms_per_call"] = None
+        out["library_none_reason"] = f"scaled_dot_product_attention: {e}"[
+            :300]
+    bound, by, nbytes = decode_bound_ms(shape)
+    out.update({"bound_ms_per_call": bound, "bound_by": by,
+                "bytes_per_call": nbytes,
+                "bound_share": bound / out["kernel_ms_per_call"]})
+    for key in ("kernel", "plain", "library", "bound"):
+        per_call = out[f"{key}_ms_per_call"]
+        out[f"{key}_ms_per_step"] = (None if per_call is None
+                                     else layers * per_call)
+    del cache, calls, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode_kernel() -> dict:
+    """``decode_attention`` (built by the kernel phase) against its plain
+    version on the card: bf16 and fp32, D 16 to 256, n_rep 1, 2 and 4, B *
+    Hkv above and below 132, lengths at every edge, with and without the
+    self column, stale rows and repeated launches (``compare_decode``);
+    then, at serve_7b's engine step, bench.py's inference leg and the 400M
+    engine's step, the kernel against its plain version on those shapes'
+    own operands, and its times per call and per decode step beside its
+    plain version, SDPA and its bound."""
+    from ray_tpu_torch.ops import build
+    from ray_tpu_torch.ops import decode_attention as da
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    cases = []
+    with torch.inference_mode():
+        for d, n_rep, dtype in itertools.product(
+                DECODE_HEAD_DIMS, (1, 2, 4), (torch.bfloat16, torch.float32)):
+            cases.append(compare_decode(da, gen, 0, 16, n_rep, d, dtype))
+        # B * Hkv above 528: one chunk of 320 rows, three pv tiles
+        cases.append(compare_decode(da, gen, 20, 16, 1, 128, torch.bfloat16))
+        times = {"serve_7b_step": decode_times(da, gen, DECODE_SERVE_7B),
+                 "inference_step": decode_times(da, gen, DECODE_INFERENCE),
+                 "engine_400m_step": decode_times(da, gen,
+                                                  DECODE_ENGINE_400M)}
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    errs = {dt: max([c[form]["max_abs_err"] for c in cases for form in
+                     ("self", "no_self") if c["dtype"] == dt]
+                    + [t["vs_plain"][dt]["max_abs_err"]
+                       for t in times.values()])
+            for dt in ("bfloat16", "float32")}
+    out = {"phase": "decode_kernel", "cases": cases, "max_abs_err": errs,
+           "rtol": {str(k).removeprefix("torch."): v
+                    for k, v in DECODE_RTOL.items()},
+           "ptxas": [r for r in ptxas_report(build.BUILD_LOGS)
+                     if r["library"] == "decode_attention"],
+           "times": times}
+    check(all(t["bound_by"] == "bytes" for t in times.values()),
+          "decode attention is bound by bytes")
     emit(out)
     return out
 
@@ -1142,6 +1446,228 @@ def phase_grad(cfg, b32: int = 2, b: int = MAIN_SHAPE[0],
     return out
 
 
+# bench.py's inference leg (``measure_inference``, bench.py:233-270, called
+# at :388-391): bench_400m with dense attention and no remat, bf16, 8
+# prompts of 1024 tokens, 64 new tokens through a 1089-row cache.
+INFERENCE_BATCH, INFERENCE_PROMPT, INFERENCE_NEW = 8, 1024, 64
+
+
+def captured_decode_block(params, cfg, cache, first, start: int,
+                          steps: int) -> torch.Tensor:
+    """``decode_block_into`` (the engine's decode program) from ``first`` at
+    ``start`` for every slot, greedy, captured in a CUDA graph
+    (``ray_tpu_torch.graphs``) and replayed once (the state and the cache
+    rows the warm-up wrote are reset first). Returns the tokens [B,
+    steps]."""
+    from ray_tpu_torch import graphs
+    from ray_tpu_torch.models.generation import decode_block_into
+
+    b = first.shape[0]
+    tok, pos = first.clone(), torch.full((b,), start, device=first.device)
+    zeros_i = torch.zeros(b, dtype=torch.long, device=first.device)
+    temps = torch.zeros(b, dtype=torch.float32, device=first.device)
+    counts = zeros_i.clone()
+    out = torch.zeros((b, steps), dtype=torch.long, device=first.device)
+
+    def block():
+        decode_block_into(params, cache, tok, pos, temps, zeros_i, counts,
+                          cfg, out)
+
+    graphs.warm_up(block, first.device)
+    cap = graphs.capture(block)
+    tok.copy_(first)
+    pos.fill_(start)
+    counts.zero_()
+    cap.replay()
+    torch.cuda.synchronize()
+    del cap
+    return out.clone()
+
+
+def phase_inference(cfg) -> dict:
+    """bench.py's inference leg on the port: ``prefill`` timed as TTFT and
+    ``decode_loop`` as decode tokens/s (each the second call of its
+    signature, the first having captured its programs), as bench.py times
+    the reference's two compiled programs. Checks: the timed loop runs no
+    eager decode step; it replays its captured blocks, each holding one
+    decode attention launch per layer per step, and so does a profiled
+    replay by kernel name. Then the first and second calls of a 256- and a
+    1023-step loop (what capture costs in time and memory at longer
+    generations). The captured ``generate`` gives the same greedy tokens as
+    the same bodies run uncaptured on the card; in float32 with TF32 off,
+    the engine's decode program (captured, ``RAYTPU_DECODE_DEFERRED_WRITES``
+    unset and set) gives ``generate``'s tokens from its prefill, the two
+    structures bit for bit alike."""
+    import os
+
+    from ray_tpu_torch.models import generation
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.ops import decode_attention as da
+
+    b, s, new = INFERENCE_BATCH, INFERENCE_PROMPT, INFERENCE_NEW
+    max_len = s + new + 1
+    icfg = dataclasses.replace(cfg, attn_impl="dense", remat=False)
+    params, icfg = generation.prepare_for_inference(init_params(icfg, SEED),
+                                                    icfg)
+    rng = np.random.default_rng(SEED + 6)
+    prompt = torch.from_numpy(rng.integers(0, icfg.vocab_size, (b, s))).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    out = {"phase": "inference", "batch": b, "prompt_len": s,
+           "new_tokens": new, "max_len": max_len,
+           "n_layers": icfg.n_layers}
+    generation.release_programs()
+    da.launches = 0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def run_prefill():
+        return generation.prefill(params, prompt, icfg, max_len)
+
+    _, out["prefill_capture_ms"] = timed(run_prefill)
+    (logits, cache), out["ttft_ms"] = timed(run_prefill)
+    first = torch.argmax(logits, dim=-1)
+    start = torch.tensor(s, device="cuda")
+
+    def run_decode():
+        return generation.decode_loop(params, first, cache, start, icfg, new,
+                                      0.0, gen)
+
+    _, out["decode_capture_ms"] = timed(run_decode)
+    with eager_decode_steps("decode_step") as eager:
+        toks, decode_ms = timed(run_decode)
+    out.update({"decode_ms": decode_ms,
+                "decode_tokens_per_s": b * new / decode_ms * 1e3,
+                "eager_decode_steps_in_timed_loop": eager[0],
+                "decode_ms_cuda_events": cuda_ms(run_decode, 3, 0)})
+    programs = generation.programs()
+    out["programs"] = [{"kind": list(kind), "replays": replays,
+                        "decode_attention_launches": launches}
+                       for kind, replays, launches in programs]
+    decode = [(kind[1], replays, launches)
+              for kind, replays, launches in programs if kind[0] == "decode"]
+    plan = generation._block_plan(new)
+    check(sorted(k for k, _, _ in decode) == sorted(set(plan))
+          and all(r >= 2 * plan.count(k) for k, r, _ in decode),
+          f"decode_loop ran from its captured blocks {plan}: {programs}")
+    rates = {launches / k for k, _, launches in decode}
+    per_step = rates.pop() if len(rates) == 1 else sorted(rates)
+    per_step = (int(per_step) if isinstance(per_step, float)
+                and per_step.is_integer() else per_step)
+    out["decode_attention_launches_per_step"] = per_step
+    out["decode_attention_wrapper_launches"] = da.launches
+    check(eager[0] == 0 and per_step == icfg.n_layers,
+          f"the timed loop ran {eager[0]} eager decode steps; its graph "
+          f"holds {per_step} decode attention launches per step, not "
+          f"{icfg.n_layers}")
+    prof = device_profile(run_decode, kinds=DECODE_KINDS)
+    per_step_by_name = (prof["launches_by_kind"]["decode_attention"]
+                        / DECODE_ATTENTION_KERNELS / new)
+    out["decode_profile"] = prof
+    out["decode_attention_kernel_ms_per_step"] = (
+        prof["device_ms_by_kind"]["decode_attention"] / new)
+    check(per_step_by_name == icfg.n_layers,
+          f"a profiled replay ran {per_step_by_name} decode attention calls "
+          f"per step, not {icfg.n_layers}")
+    check(toks.shape == (b, new) and bool(((toks >= 0)
+                                           & (toks < icfg.vocab_size)).all()),
+          "decode_loop tokens of the wrong shape or out of the vocabulary")
+
+    # the first call of a longer loop: the blocks it captures (one at 256
+    # steps, all six at 1023) against its second call, and the memory the
+    # capture took (the session's pool; its static cache came with prefill)
+    out["first_call_by_new_tokens"] = {}
+    for n in (256, 1023):
+        generation.release_programs()
+        torch.cuda.empty_cache()
+        logits_n, cache_n = generation.prefill(params, prompt, icfg,
+                                               s + n + 1)
+        first_n = torch.argmax(logits_n, dim=-1)
+        torch.cuda.synchronize()
+        alloc, reserved = (torch.cuda.memory_allocated(),
+                           torch.cuda.memory_reserved())
+
+        def run_n():
+            return generation.decode_loop(params, first_n, cache_n, start,
+                                          icfg, n, 0.0, gen)
+
+        _, first_ms = timed(run_n)
+        grown = (torch.cuda.memory_allocated() - alloc,
+                 torch.cuda.memory_reserved() - reserved)
+        _, second_ms = timed(run_n)
+        out["first_call_by_new_tokens"][n] = {
+            "block_plan": generation._block_plan(n),
+            "programs_captured": sum(k[0] == "decode"
+                                     for k, _, _ in generation.programs()),
+            "first_call_ms": first_ms, "second_call_ms": second_ms,
+            "capture_ms": first_ms - second_ms,
+            "allocated_bytes_grown": grown[0],
+            "reserved_bytes_grown": grown[1]}
+        del logits_n, cache_n
+    generation.release_programs()
+    torch.cuda.empty_cache()
+
+    # captured generate against the same bodies run uncaptured on the card
+    captured = generation.generate(params, prompt, icfg,
+                                   max_new_tokens=new + 1, max_len=max_len)
+    with torch.no_grad():
+        cache_e = generation.init_kv_cache(icfg, b, max_len)
+        logits_e = generation._forward_cached(params, prompt, cache_e, 0,
+                                              icfg)[0][:, -1]
+        first_e = torch.argmax(logits_e, dim=-1)
+        zeros_i = torch.zeros(b, dtype=torch.long, device="cuda")
+        rest_e = generation.decode_loop_into(
+            params, cache_e, first_e.clone(), torch.tensor(s, device="cuda"),
+            torch.zeros(b, device="cuda"), zeros_i, zeros_i.clone(), icfg,
+            torch.zeros((b, new), dtype=torch.long, device="cuda"))
+    uncaptured = torch.cat([first_e[:, None], rest_e], dim=1)
+    check(torch.equal(captured, uncaptured),
+          "captured generate differs from the same loop run uncaptured")
+    out["captured_equals_uncaptured"] = True
+    out["prefill_logits_bit_equal_uncaptured"] = torch.equal(logits,
+                                                             logits_e)
+    out["tokens_equal_decode_loop"] = torch.equal(captured[:, 1:], toks)
+    del cache_e, logits_e
+    generation.release_programs()
+    torch.cuda.empty_cache()
+
+    # float32, TF32 off: generate's tokens against the engine's decode
+    # program from generate's prefill, with and without deferred writes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(icfg, dtype=torch.float32)
+    ref = generation.generate(params, prompt, cfg32, max_new_tokens=new + 1,
+                              max_len=max_len)
+    with torch.no_grad():
+        logits32, cache32 = generation.prefill(params, prompt, cfg32,
+                                               max_len)
+        first32 = torch.argmax(logits32, dim=-1)
+        blocks = {}
+        for flag in ("0", "1"):
+            os.environ["RAYTPU_DECODE_DEFERRED_WRITES"] = flag
+            try:
+                blocks[flag] = captured_decode_block(
+                    params, cfg32, {k: v.clone() for k, v in cache32.items()},
+                    first32, s, new)
+            finally:
+                os.environ.pop("RAYTPU_DECODE_DEFERRED_WRITES")
+    check(torch.equal(blocks["1"], blocks["0"]),
+          "deferred writes change the engine's decode tokens")
+    check(torch.equal(first32, ref[:, 0])
+          and torch.equal(blocks["1"], ref[:, 1:]),
+          "fp32: the deferred-writes decode differs from generate")
+    out["fp32_deferred_writes_equals_generate"] = True
+    del cache32, logits32, params
+    generation.release_programs()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def _serve_concurrently(engine, prompts, max_new_tokens):
     """One client thread per prompt, all started together. Returns each
     stream's tokens and the arrival times of its tokens (s since start)."""
@@ -1208,15 +1734,21 @@ def decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
 def graph_decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
                          max_len=1024) -> dict:
     """The same decode block as the engine runs it: ``decode_block_into``
-    captured in one CUDA graph and replayed (every slot back at ``pos``
-    before each replay). Device ms per step by CUDA events over 5 replays,
-    then one replay under the profiler (busy share, device ms by kind), and
-    the int8 kernel launches the graph holds."""
+    captured in one CUDA graph (``ray_tpu_torch.graphs``) and replayed
+    (every slot back at ``pos`` before each replay). Device ms per step by
+    CUDA events over 5 replays, then one replay under the profiler (busy
+    share, device ms by kind), and the int8 and decode attention launches
+    the graph holds. Beside it, the block captured again with
+    ``RAYTPU_DECODE_DEFERRED_WRITES=1`` (the reference's deferred-writes
+    structure), the two timed in turns: default, deferred, default,
+    deferred."""
+    import os
+
+    from ray_tpu_torch import graphs
     from ray_tpu_torch.models.generation import (
         decode_block_into,
         prepare_for_inference,
     )
-    from ray_tpu_torch.ops import int8_matmul as im
 
     ip, icfg = prepare_for_inference(params, cfg)
     cache, tok, pos_t, temps, seeds, counts = _decode_state(
@@ -1224,74 +1756,94 @@ def graph_decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
     out = torch.empty((slots, steps), dtype=torch.long, device=tok.device)
     block = functools.partial(decode_block_into, ip, cache, tok, pos_t,
                               temps, seeds, counts, icfg, out)
-    graph = torch.cuda.CUDAGraph()
+    caps = {}
+    knob = "RAYTPU_DECODE_DEFERRED_WRITES"
     with torch.inference_mode():
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            block()  # warm-up
-        torch.cuda.current_stream().wait_stream(side)
-        before = im.launches
-        with torch.cuda.graph(graph):
-            block()
-        launches = im.launches - before
+        was = os.environ.pop(knob, None)
+        try:
+            for flag in ("0", "1"):
+                os.environ[knob] = flag
+                graphs.warm_up(block, tok.device)
+                caps[flag] = graphs.capture(block)
+        finally:
+            os.environ.pop(knob)
+            if was is not None:
+                os.environ[knob] = was
 
-        def replay():
-            pos_t.fill_(pos)
-            graph.replay()
+        def replayer(flag):
+            def replay():
+                pos_t.fill_(pos)
+                caps[flag].graph.replay()
+            return replay
 
-        ms = cuda_ms(replay, 5, 1)
-        prof = device_profile(replay, kinds=DECODE_KINDS)
-    del graph
+        turns = {"0": [], "1": []}
+        for flag in ("0", "1", "0", "1"):
+            turns[flag].append(cuda_ms(replayer(flag), 5, 1) / steps)
+        prof = device_profile(replayer("0"), kinds=DECODE_KINDS)
+    launches = caps["0"].launches
+    del caps
     torch.cuda.empty_cache()
-    prof.update({"steps": steps, "device_ms_per_step_cuda_events": ms / steps,
+    prof.update({"steps": steps,
+                 "device_ms_per_step_cuda_events": turns["0"][0],
                  "wall_ms_per_step": prof["wall_ms"] / steps,
-                 "int8_launches_per_replay": launches})
+                 "int8_launches_per_replay": launches["int8_matmul"],
+                 "decode_attention_launches_per_replay":
+                     launches["decode_attention"],
+                 "deferred_writes_turns_ms_per_step": {
+                     "per_layer_writes": turns["0"],
+                     "deferred_writes": turns["1"]}})
     prof["device_ms_per_step_by_kind"] = {
         k: v / steps for k, v in prof["device_ms_by_kind"].items()}
     return prof
 
 
 @contextlib.contextmanager
-def eager_decode_steps():
+def eager_decode_steps(name: str = "decode_step_multi"):
     """Counts the decode steps that Python runs while the block is open
-    (``decode_step_multi`` called op by op); a replayed graph calls none."""
+    (``generation.<name>`` called op by op: the engine's
+    ``decode_step_multi``, ``generate``'s ``decode_step``); a replayed graph
+    calls none."""
     from ray_tpu_torch.models import generation
 
-    real = generation.decode_step_multi
+    real = getattr(generation, name)
     count = [0]
 
     def counted(*args, **kwargs):
         count[0] += 1
         return real(*args, **kwargs)
 
-    generation.decode_step_multi = counted
+    setattr(generation, name, counted)
     try:
         yield count
     finally:
-        generation.decode_step_multi = real
+        setattr(generation, name, real)
 
 
 def graph_stats(engine, int8_wrapper_launches: int) -> dict:
-    """The engine's graph replays, the int8 kernel launches they made (each
-    graph's captured launches times its replays) beside those the wrapper
-    counted (warm-up and capture), and the launches per decode step."""
+    """The engine's graph replays, the int8 and decode attention kernel
+    launches they made (each graph's captured launches times its replays),
+    the int8 launches the wrapper counted (warm-up and capture), and the
+    launches of each per decode step."""
     replays = engine.graph_replays
-    per_graph = engine.graph_int8_launches
     decode = [key for key in replays if key[0] == "decode"]
     steps = sum(replays[key] * key[1] for key in decode)
-    per_step = None
-    if steps:  # each block length's graph holds a whole number per step
-        per_step = sum(replays[key] * per_graph[key] for key in decode) / steps
-        per_step = int(per_step) if per_step.is_integer() else per_step
-    return {"graph_replays": {f"{a}_{b}": n for (a, b), n in replays.items()},
-            "graph_int8_launches": {f"{a}_{b}": n
-                                    for (a, b), n in per_graph.items()},
-            "replayed_decode_steps": steps,
-            "int8_launches_replayed": sum(replays[key] * per_graph[key]
-                                          for key in replays),
-            "int8_launches_wrapper": int8_wrapper_launches,
-            "int8_launches_per_decode_step": per_step}
+    out = {"graph_replays": {f"{a}_{b}": n for (a, b), n in replays.items()},
+           "replayed_decode_steps": steps,
+           "int8_launches_wrapper": int8_wrapper_launches}
+    for name, per_graph in (("int8", engine.graph_int8_launches),
+                            ("decode_attention",
+                             engine.graph_decode_attention_launches)):
+        per_step = None
+        if steps:  # each block length's graph holds a whole number per step
+            per_step = sum(replays[key] * per_graph[key]
+                           for key in decode) / steps
+            per_step = int(per_step) if per_step.is_integer() else per_step
+        out.update({f"graph_{name}_launches": {
+                        f"{a}_{b}": n for (a, b), n in per_graph.items()},
+                    f"{name}_launches_replayed": sum(
+                        replays[key] * per_graph[key] for key in replays),
+                    f"{name}_launches_per_decode_step": per_step})
+    return out
 
 
 def serve_through_graphs(engine, prompts, new, vocab) -> dict:
@@ -1357,7 +1909,7 @@ def fp32_engine_equals_generate(params, cfg, rng) -> None:
     """In float32 with TF32 off, the engine's greedy tokens for 3
     interleaved prompts (2 slots, 16 new tokens) must EQUAL ``generate``'s,
     one prompt at a time."""
-    from ray_tpu_torch.models.generation import generate
+    from ray_tpu_torch.models.generation import generate, release_programs
     from ray_tpu_torch.serve.llm import LLMEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1367,6 +1919,7 @@ def fp32_engine_equals_generate(params, cfg, rng) -> None:
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 100, 70)]
     ref = [generate(params, p[None], cfg32, max_new_tokens=new,
                     max_len=256)[0].tolist() for p in prompts]
+    release_programs()  # generate's sessions leave the card to the engine
     engine = LLMEngine(params, cfg32, max_slots=2, max_len=256,
                        prefill_buckets=(64, 128))
     try:
@@ -1398,6 +1951,10 @@ def phase_serve(params, cfg) -> dict:
            **graphs, "flash_launches": fa.launches}
     check(graphs["int8_launches_per_decode_step"] == 0,
           "bf16 weights launch no int8 kernel")
+    check(graphs["decode_attention_launches_per_decode_step"]
+          == cfg.n_layers, f"decode attention launches per decode step "
+          f"{graphs['decode_attention_launches_per_decode_step']}, not one "
+          f"per layer ({cfg.n_layers})")
     del engine
     torch.cuda.empty_cache()
     out["decode_block_graph_profile"] = graph_decode_profile(params, cfg, rng)
@@ -1474,6 +2031,10 @@ def serve_7b_traffic(params, cfg, prompts, new) -> dict:
     del engine
     out.update({"engine_build_s": build_s, "flash_launches": fa.launches})
     check(fa.launches == 0, "serve_7b attends densely: no flash launch")
+    check(out["decode_attention_launches_per_decode_step"] == cfg.n_layers,
+          f"decode attention launches per decode step "
+          f"{out['decode_attention_launches_per_decode_step']}, not one per "
+          f"layer ({cfg.n_layers})")
     torch.cuda.empty_cache()
     at = len(prompts[0]) + new // 2
     out["decode_block_graph_profile"] = graph_decode_profile(
@@ -1600,8 +2161,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
-    if argv not in ([], ["kernel"], ["serve_7b"], ["train"]):
-        print("usage: chip_smoke.py [kernel | serve_7b | train]",
+    if argv not in ([], ["kernel"], ["serve_7b"], ["train"], ["inference"]):
+        print("usage: chip_smoke.py [kernel | serve_7b | train | inference]",
               file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
@@ -1619,8 +2180,13 @@ def main(argv) -> int:
         phase_train(TransformerConfig.bench_400m())
         print(smi, flush=True)
         return 0
+    if argv == ["inference"]:
+        phase_inference(TransformerConfig.bench_400m())
+        print(smi, flush=True)
+        return 0
     kernel = phase_kernel()
     int8 = phase_int8_kernel()
+    dec = phase_decode_kernel()
     if argv == ["kernel"]:
         print(smi, flush=True)
         return 0
@@ -1629,6 +2195,7 @@ def main(argv) -> int:
     phase_forward(params, cfg)
     train = phase_train(cfg)
     phase_grad(cfg)
+    inference = phase_inference(cfg)
     phase_serve(params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -1637,6 +2204,8 @@ def main(argv) -> int:
     per_step = train["launches_per_step"]
     wrappers = train["wrapper_counts_in_run"]
     int8_step = int8["decode_step"]
+    dec7, dec_inf = (dec["times"]["serve_7b_step"],
+                     dec["times"]["inference_step"])
     main_bwd = kernel["bwd_cases"][0]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -1684,6 +2253,27 @@ def main(argv) -> int:
          # per serve_7b prefill: the same products at M 128
          "prefill_ms": int8["prefill_step"]["kernel_ms"],
          "prefill_bound_ms": int8["prefill_step"]["bound_ms"]},
+        # per serve_7b decode step: one call per layer, 8 slots at position
+        # 160 of 512 with the self column; beside it, per step of bench.py's
+        # inference leg (bench_400m, lengths 1025..1088 of 1089)
+        {"name": "decode_attention", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/decode_attention.cu",
+         "replaces": "ray_tpu/models/generation.py:151 (XLA fusion; and "
+                     ":61 at S = 1)",
+         "launches": s7["int8"]["decode_attention_launches_per_decode_step"],
+         "launches_in_traffic":
+             s7["int8"]["decode_attention_launches_replayed"],
+         "launches_per_inference_step":
+             inference["decode_attention_launches_per_step"],
+         "max_abs_err": dec["max_abs_err"]["bfloat16"],
+         "ms": dec7["kernel_ms_per_step"],
+         "plain_ms": dec7["plain_ms_per_step"],
+         "bound_ms": dec7["bound_ms_per_step"], "bound_by": dec7["bound_by"],
+         "library_ms": dec7["library_ms_per_step"],
+         "inference_ms": dec_inf["kernel_ms_per_step"],
+         "inference_plain_ms": dec_inf["plain_ms_per_step"],
+         "inference_bound_ms": dec_inf["bound_ms_per_step"],
+         "inference_library_ms": dec_inf["library_ms_per_step"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

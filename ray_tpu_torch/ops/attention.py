@@ -24,6 +24,21 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     )
 
 
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """q [B, Sq, H, D] against k/v [B, Sk, Hkv, D]; ``mask`` broadcasts
+    against the fp32 scores [B, H, Sq, Sk] (True = attend; NEG_INF
+    elsewhere). p is rounded to q's dtype before the product with v."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def causal_attention(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Sk, Hkv, D]

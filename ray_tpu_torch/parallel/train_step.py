@@ -22,6 +22,7 @@ from typing import Callable, ClassVar, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ray_tpu_torch import graphs
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -153,13 +154,15 @@ def make_train_step(
 
 @dataclasses.dataclass
 class _Program:
-    """One captured step: its graph, the static batch buffers it reads, and
-    the static loss and grad norm it writes."""
+    """One captured step: its graph, the static batch buffers it reads, the
+    static loss and grad norm it writes, and the hand-written kernels'
+    launches it holds (``graphs.Captured.launches``)."""
 
     graph: "torch.cuda.CUDAGraph"
     batch: Dict[str, torch.Tensor]
     loss: torch.Tensor
     grad_norm: torch.Tensor
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class TrainStep:
@@ -237,34 +240,30 @@ class TrainStep:
             return program.loss, program.grad_norm
 
     def _warm_up(self, state, batch, dev):
-        """The step run eagerly on a side stream, as ``LLMEngine`` warms its
-        programs before capture; the current stream then waits for it."""
-        cur = torch.cuda.current_stream(dev)
+        """The step run eagerly on a side stream (``graphs.warm_up``), as
+        ``LLMEngine`` warms its programs before capture."""
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
-            for v in batch.values():
+
+        def body():
+            moved = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+            for v in moved.values():
                 v.record_stream(self._side)
-            out = self._body(state, batch)
-        cur.wait_stream(self._side)
-        return out
+            return self._body(state, moved)
+
+        return graphs.warm_up(body, dev, self._side)
 
     def _capture(self, state, batch, dev) -> _Program:
-        """Captures one step over static batch buffers. Thread-local capture
-        mode: a batch pump's thread may pin memory and copy on its own
-        stream meanwhile."""
+        """Captures one step over static batch buffers (``graphs.capture``,
+        thread-local mode: a batch pump's thread may pin memory and copy on
+        its own stream meanwhile)."""
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
                   for k, v in batch.items()}
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            loss_val, grad_norm = self._body(state, static)
+        cap = graphs.capture(lambda: self._body(state, static), self._pool)
         self.captures += 1
-        return _Program(graph, static, loss_val, grad_norm)
+        return _Program(cap.graph, static, *cap.result, cap.launches)
 
 
 def _metrics(loss_val, grad_norm, step) -> Dict[str, torch.Tensor]:

@@ -39,6 +39,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch import graphs
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.generation import (
     _sample_vec,
@@ -48,7 +49,6 @@ from ray_tpu_torch.models.generation import (
     prepare_for_inference,
 )
 from ray_tpu_torch.models.transformer import tree_map
-from ray_tpu_torch.ops import int8_matmul
 
 _END = object()
 
@@ -184,10 +184,12 @@ class LLMEngine:
                 _prefill_program, self.params, self._prefill_args[b],
                 self._prefill_temp, self.cache, *state, self.config)
         self._graphs = {}  # CUDA: program key -> its captured CUDAGraph
-        # observability: replays per graph, and int8_matmul kernel launches
-        # recorded in each graph (each replay launches them again)
+        # observability: replays per graph, and the int8_matmul and
+        # decode_attention kernel launches recorded in each graph (each
+        # replay launches them again)
         self.graph_replays = dict.fromkeys(self._programs, 0)
         self.graph_int8_launches = {}
+        self.graph_decode_attention_launches = {}
         # host-side slot table
         self.slot_req: List[Optional[_Request]] = [None] * max_slots
         self.pending: "collections.deque[_Request]" = collections.deque()
@@ -225,20 +227,15 @@ class LLMEngine:
     def _capture_graphs(self):
         dev = self.device
         with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for program in self._programs.values():
-                    program()
-            torch.cuda.current_stream(dev).wait_stream(side)
+            graphs.warm_up(lambda: [p() for p in self._programs.values()],
+                           dev)
             pool = torch.cuda.graph_pool_handle()
             for key, program in self._programs.items():
-                graph = torch.cuda.CUDAGraph()
-                before = int8_matmul.launches
-                with torch.cuda.graph(graph, pool=pool):
-                    program()
-                self.graph_int8_launches[key] = int8_matmul.launches - before
-                self._graphs[key] = graph
+                cap = graphs.capture(program, pool)
+                self.graph_int8_launches[key] = cap.launches["int8_matmul"]
+                self.graph_decode_attention_launches[key] = cap.launches[
+                    "decode_attention"]
+                self._graphs[key] = cap.graph
             torch.cuda.synchronize(dev)
 
     def _run(self, key):

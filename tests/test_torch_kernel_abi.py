@@ -1,8 +1,8 @@
 """The ctypes boundary of the port's CUDA kernels, checked on the CPU.
 
 Every ``extern "C"`` function in ``ray_tpu_torch/ops/csrc/*.cu`` is parsed
-and held against its ``_ARGTYPES`` entry in ``ops/flash_attention.py`` or
-``ops/int8_matmul.py``: the parameter count and each type (pointer -> c_void_p, int -> c_int, long long
+and held against its ``_ARGTYPES`` entry in ``ops/flash_attention.py``,
+``ops/int8_matmul.py`` or ``ops/decode_attention.py``: the parameter count and each type (pointer -> c_void_p, int -> c_int, long long
 -> c_int64, float -> c_float). A mismatch would truncate a pointer or shift
 every later argument on the card, and nothing else here would show it.
 Then ``_kernel_operand``'s TMA rules on CPU tensors, and how a launch's
@@ -16,11 +16,12 @@ from pathlib import Path
 import pytest
 import torch
 
+from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import int8_matmul as im
 
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
-ARGTYPES = {**fa._ARGTYPES, **im._ARGTYPES}
+ARGTYPES = {**fa._ARGTYPES, **im._ARGTYPES, **da._ARGTYPES}
 _EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
 
 
@@ -49,6 +50,16 @@ def test_every_extern_function_has_argtypes_and_no_more():
     assert EXTERN, "no extern \"C\" function found under csrc/"
     assert set(EXTERN) == set(ARGTYPES)
     assert ("int8_matmul", "int8_matmul") in EXTERN
+    assert ("decode_attention", "decode_attention") in EXTERN
+
+
+def test_every_source_is_built():
+    """Every CUDA source under csrc/ is in build.SOURCES, so chip_smoke.py's
+    build compiles it."""
+    from ray_tpu_torch.ops import build
+
+    assert set(build.SOURCES.values()) == {p.name for p in
+                                           CSRC.glob("*.cu")}
 
 
 @pytest.mark.parametrize("key", sorted(EXTERN), ids=lambda k: "/".join(k))

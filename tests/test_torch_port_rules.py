@@ -51,6 +51,7 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
     assert {"ray_tpu_torch.serve.llm",
             "ray_tpu_torch.parallel.train_step",
             "ray_tpu_torch.ops.int8_matmul",
+            "ray_tpu_torch.ops.decode_attention",
             "ray_tpu_torch.data.iterator",
             "ray_tpu_torch.train.sharded_checkpoint"} <= set(mods)
     code = (
@@ -72,6 +73,7 @@ def test_the_scan_covers_every_kernel_module():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"ray_tpu_torch/ops/int8_matmul.py",
             "ray_tpu_torch/ops/flash_attention.py",
+            "ray_tpu_torch/ops/decode_attention.py",
             "ray_tpu_torch/data/iterator.py",
             "ray_tpu_torch/train/sharded_checkpoint.py"} <= names
 
