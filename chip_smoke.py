@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py                  # every phase (what a check runs)
     timeout 300 python3 chip_smoke.py kernel   # the kernel phases only
+    timeout 300 python3 chip_smoke.py decode_kernel  # the decode kernel only
     timeout 600 python3 chip_smoke.py serve_7b # the serve_7b phase only
     timeout 600 python3 chip_smoke.py train    # the train phase only
     timeout 600 python3 chip_smoke.py inference  # the inference phase only
 
 Run from the repo root on a machine with one CUDA card. Nine phases; any
 failure raises and the script exits non-zero without a result line. With
-the argument ``kernel`` (or ``serve_7b``, ``train``, ``inference``) it runs
-the kernel phases (or that phase) alone and prints no result line: the
-first call after a kernel (or that path) changes, under ``timeout``.
+the argument ``kernel`` (or ``decode_kernel``, ``serve_7b``, ``train``,
+``inference``) it runs the kernel phases (or that phase, ``decode_kernel``
+building its kernel first) alone and prints no result line: the first call
+after a kernel (or that path) changes, under ``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -32,17 +34,22 @@ first call after a kernel (or that path) changes, under ``timeout``.
    launch plan (K split, ring stages, wgmma N, workspace).
 3. decode_kernel: ``decode_attention`` against its plain version under
    ``DECODE_RTOL``, in bf16 and fp32, at D 16, 64, 96, 128, 192 and 256,
-   n_rep 1, 2 and 4, B * Hkv above and below 132, with and without the self
-   column, at lengths 0 (self alone), 1, the kernels' tile and chunk edges,
-   S_max - 1, S_max and past it; in every case the rows at or past a slot's
-   length set to NaN, and to zeros, give the same output bit for bit, and so
-   does a second launch. Then at the main paths' own shapes (serve_7b's
-   engine step: 8 slots at position 160 of 512, self column; bench.py's
-   inference leg: lengths 1025..1088 of 1089; the 400M engine's step: 8
-   slots at 300 of 1024, self column), each with one more call at ragged
+   n_rep 1, 2, 3, 4 and 8, clusters of 1, 2, 4 and 8 blocks, with and
+   without the self column, at lengths 0 (self alone), 1, below the
+   cluster's size, around every tile edge (and so every edge of a
+   cluster's shares), S_max - 1, S_max and past it; in every case the
+   rows at or past a slot's length set to NaN, and to zeros, give the same
+   output bit for bit, and so does a second launch. Then at the main
+   paths' own shapes (serve_7b's engine step: 8 slots at position 160 of
+   512, self column; bench.py's inference leg: lengths 1025..1088 of 1089;
+   the 400M engine's step: 8 slots at 300 of 1024, self column), each with
+   one more call at ragged
    per-slot lengths: the kernel against its plain version on the same
    operands in bf16 and fp32, and device times inside CUDA graphs (kernel,
-   plain version, SDPA with a boolean mask, bound) per call and per step.
+   plain version, SDPA with a boolean mask, bound) per call and per step,
+   with each shape's launch plan (cluster, tile rows, ring stages, shared
+   memory, clusters the card holds at once: all of the grid's, checked),
+   the host cost of an eager call, and ptxas's registers and spills.
 4. forward: ``bench_400m`` (full width: 24 layers, d_model 1024, 8 heads x
    128) in bf16 from a seeded random init, ``forward`` and ``loss_fn`` on
    tokens [8, 2048]; the flash kernel must launch exactly once per layer and
@@ -171,15 +178,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 # Kinds of kernel in a decode step, matched in order on the full kernel
-# name: the decode attention kernels (three per call: scores, pv, finish);
-# the int8 weight-only matmul kernel; dtype conversions (the plain dequant's
-# int8 -> bf16 among them), products by a broadcast scale and other
-# elementwise multiplies, matrix products (cuBLAS's nvjet and gemv kernels).
-DECODE_KINDS = {"decode_attention": "decode_(scores|pv|finish)_kernel",
+# name: the decode attention kernel (one launch per call); the int8
+# weight-only matmul kernel; dtype conversions (the plain dequant's int8 ->
+# bf16 among them), products by a broadcast scale and other elementwise
+# multiplies, matrix products (cuBLAS's nvjet and gemv kernels).
+DECODE_KINDS = {"decode_attention": "decode_attention_kernel",
                 "int8_matmul": "int8_mm", "copy_convert": "direct_copy_kernel",
                 "mul": "MulFunctor", "gemm": "gemm|gemv|nvjet|xmma|cutlass"}
-# Kernels per decode_attention call (csrc/decode_attention.cu).
-DECODE_ATTENTION_KERNELS = 3
 
 
 def device_profile(fn, top: int = 10, kinds: dict = None) -> dict:
@@ -773,13 +778,15 @@ DECODE_ENGINE_400M = {"b": 8, "h": 8, "s_max": 1024, "d": 128, "layers": 24,
                       "ragged": [64, 131, 198, 265, 332, 399, 466, 532]}
 
 
-def decode_lengths(s_max: int, self_col: bool) -> list:
-    """Per-slot lengths at the edges the kernels cut at: none (the self
-    column alone), one row, around every multiple of 64 (the plan's chunks
-    are multiples of 64 rows, the pv kernel's tiles 128), the last rows, and
-    past the cache (clamped)."""
-    edges = {1, s_max - 1, s_max, s_max + 7}
-    for c in range(64, s_max, 64):
+def decode_lengths(s_max: int, self_col: bool, tile_rows: int = 16) -> list:
+    """Per-slot lengths at the edges the kernel cuts at: none (the self
+    column alone), one row, fewer rows than a cluster has blocks (2, 3, 5,
+    7: blocks with no share), around every multiple of the kernel's
+    ``tile_rows`` (tiles end there, and a cluster of C blocks splits a slot
+    evenly at multiples of C tiles) and so of 64 (the chunks of the earlier
+    design), the last rows, and past the cache (clamped)."""
+    edges = {1, 2, 3, 5, 7, s_max - 1, s_max, s_max + 7}
+    for c in range(tile_rows, s_max, tile_rows):
         edges |= {c - 1, c, c + 1}
     return ([0] if self_col else []) + sorted(edges)
 
@@ -820,7 +827,7 @@ def compare_decode(da, gen, b_extra, h, n_rep, d, dtype) -> dict:
             "dtype": str(dtype).removeprefix("torch."),
             "rtol": DECODE_RTOL[dtype]}
     for self_col in (True, False):
-        lens = decode_lengths(DECODE_S_MAX, self_col)
+        lens = decode_lengths(DECODE_S_MAX, self_col, da.TILE_ROWS)
         lens += [DECODE_S_MAX // 2] * b_extra
         b = len(lens)
         q, k, v, kn, vn = decode_operands(gen, b, h, hkv, DECODE_S_MAX, d,
@@ -830,9 +837,10 @@ def compare_decode(da, gen, b_extra, h, n_rep, d, dtype) -> dict:
         got, err, bound = decode_error(da, q, k, v, lengths, new)
         gf = got.float()
         key = "self" if self_col else "no_self"
-        plan = da.launch_plan(b, h, hkv, DECODE_S_MAX, d)
-        case[key] = {"batch": b, "kv_rows": b * hkv,
-                     "chunks": [plan.n_chunks, plan.chunk_rows],
+        plan = {**dataclasses.asdict(da.launch_plan(
+            b, h, hkv, DECODE_S_MAX, d, da._sms(q.device))),
+            **da.ring(dtype, b, h, hkv, DECODE_S_MAX, d)}
+        case[key] = {"batch": b, "kv_rows": b * hkv, "plan": plan,
                      "max_abs_err": err.max().item(),
                      "max_err_over_bound":
                          (err / bound.clamp_min(1e-30)).max().item()}
@@ -927,8 +935,15 @@ def decode_times(da, gen, shape: dict) -> dict:
     calls = [(cache[0, i % layers], cache[1, i % layers], lens[i % len(lens)])
              for i in range(n_calls)]
     ragged = torch.tensor(shape["ragged"], device="cuda")
+    plan = da.launch_plan(b, h, h, s_max, d, da._sms(q.device))
+    ring = da.ring(torch.bfloat16, b, h, h, s_max, d)
+    check(ring["smem_bytes"] <= 227 * 1024
+          and ring["clusters_at_once"] >= plan.grid[1],
+          f"decode_attention at a main path's shape: a ring beyond a block's "
+          f"227 KB, or a grid the card cannot hold at once: {plan}, {ring}")
     out = {"shape": {k: v for k, v in shape.items() if k != "lengths"},
            "lengths": [shape["lengths"][0], shape["lengths"][-1]],
+           "plan": {**dataclasses.asdict(plan), **ring},
            "vs_plain": check_at_main_shape(da, q, calls, new, ragged),
            "kernel_ms_per_call": graph_ms(
                lambda k, v, n: da.decode_attention(q, k, v, n, *new), calls),
@@ -947,6 +962,14 @@ def decode_times(da, gen, shape: dict) -> dict:
         out["library_ms_per_call"] = None
         out["library_none_reason"] = f"scaled_dot_product_attention: {e}"[
             :300]
+    # host cost of an eager call: the whole wrapper (checks, the tensor
+    # maps' encode, launch), queued without a sync
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, v, n in calls[:20]:
+        da.decode_attention(q, k, v, n, *new)
+    out["eager_host_us_per_call"] = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     bound, by, nbytes = decode_bound_ms(shape)
     out.update({"bound_ms_per_call": bound, "bound_by": by,
                 "bytes_per_call": nbytes,
@@ -962,8 +985,8 @@ def decode_times(da, gen, shape: dict) -> dict:
 
 def phase_decode_kernel() -> dict:
     """``decode_attention`` (built by the kernel phase) against its plain
-    version on the card: bf16 and fp32, D 16 to 256, n_rep 1, 2 and 4, B *
-    Hkv above and below 132, lengths at every edge, with and without the
+    version on the card: bf16 and fp32, D 16 to 256, n_rep 1 to 8,
+    clusters of 1 to 8 blocks, lengths at every edge, with and without the
     self column, stale rows and repeated launches (``compare_decode``);
     then, at serve_7b's engine step, bench.py's inference leg and the 400M
     engine's step, the kernel against its plain version on those shapes'
@@ -981,7 +1004,13 @@ def phase_decode_kernel() -> dict:
         for d, n_rep, dtype in itertools.product(
                 DECODE_HEAD_DIMS, (1, 2, 4), (torch.bfloat16, torch.float32)):
             cases.append(compare_decode(da, gen, 0, 16, n_rep, d, dtype))
-        # B * Hkv above 528: one chunk of 320 rows, three pv tiles
+        # few kv heads: clusters of 4 (h 2) and 8 (h 1; 4 heads of one kv
+        # head); n_rep 8 (8 heads per block) and 3 (3 groups of one head)
+        for h, n_rep, dtype in ((2, 1, torch.bfloat16), (1, 1, torch.bfloat16),
+                                (2, 1, torch.float32), (4, 4, torch.float32),
+                                (16, 8, torch.bfloat16), (12, 3, torch.float32)):
+            cases.append(compare_decode(da, gen, 0, h, n_rep, 128, dtype))
+        # B * Hkv above 264: clusters of one block
         cases.append(compare_decode(da, gen, 20, 16, 1, 128, torch.bfloat16))
         times = {"serve_7b_step": decode_times(da, gen, DECODE_SERVE_7B),
                  "inference_step": decode_times(da, gen, DECODE_INFERENCE),
@@ -1566,8 +1595,7 @@ def phase_inference(cfg) -> dict:
           f"holds {per_step} decode attention launches per step, not "
           f"{icfg.n_layers}")
     prof = device_profile(run_decode, kinds=DECODE_KINDS)
-    per_step_by_name = (prof["launches_by_kind"]["decode_attention"]
-                        / DECODE_ATTENTION_KERNELS / new)
+    per_step_by_name = prof["launches_by_kind"]["decode_attention"] / new
     out["decode_profile"] = prof
     out["decode_attention_kernel_ms_per_step"] = (
         prof["device_ms_by_kind"]["decode_attention"] / new)
@@ -1794,6 +1822,13 @@ def graph_decode_profile(params, cfg, rng, slots=8, steps=8, pos=300,
                      "deferred_writes": turns["1"]}})
     prof["device_ms_per_step_by_kind"] = {
         k: v / steps for k, v in prof["device_ms_by_kind"].items()}
+    prof["decode_attention_launches_per_step_by_name"] = (
+        prof["launches_by_kind"]["decode_attention"] / steps)
+    check(prof["decode_attention_launches_per_step_by_name"]
+          == icfg.n_layers,
+          f"a profiled replay of the engine's decode block ran "
+          f"{prof['decode_attention_launches_per_step_by_name']} decode "
+          f"attention kernels per step, not one per layer ({icfg.n_layers})")
     return prof
 
 
@@ -2161,9 +2196,10 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
-    if argv not in ([], ["kernel"], ["serve_7b"], ["train"], ["inference"]):
-        print("usage: chip_smoke.py [kernel | serve_7b | train | inference]",
-              file=sys.stderr)
+    if argv not in ([], ["kernel"], ["decode_kernel"], ["serve_7b"],
+                    ["train"], ["inference"]):
+        print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
+              "train | inference]", file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
@@ -2172,6 +2208,13 @@ def main(argv) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    if argv == ["decode_kernel"]:
+        from ray_tpu_torch.ops import build
+
+        build.build(["decode_attention"], verbose=True)
+        phase_decode_kernel()
+        print(smi, flush=True)
+        return 0
     if argv == ["serve_7b"]:
         phase_serve_7b()
         print(smi, flush=True)

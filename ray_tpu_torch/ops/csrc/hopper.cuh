@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma and
 // TMA (flash_fwd.cu, the dQ and dK/dV kernels of flash_bwd.cu, the bf16
-// kernel of int8_matmul.cu):
+// kernel of int8_matmul.cu, decode_attention.cu):
 // mbarriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma
 // shared-memory descriptors and instructions, register rebalancing,
 // programmatic dependent launch, and the host-side tensor maps over
@@ -405,6 +405,45 @@ __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+// Thread-block clusters: this block's rank in its cluster; the cluster
+// barrier, all threads of every block of the cluster arriving once per phase
+// (a release arrive: shared-memory writes before it, this block's or a
+// remote one's, are visible after the phase's wait; a relaxed arrive orders
+// nothing, for a barrier that only says every block has started) and
+// waiting (acquire) before they arrive again; not .aligned, so callers may
+// arrive from divergent code. cluster_map gives the generic address of
+// `local`'s counterpart in the shared memory of block `rank` of the cluster:
+// ordinary loads and stores through it reach that block.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* local, int rank) {
+  uint64_t remote;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(remote) : "l"(reinterpret_cast<uint64_t>(local)), "r"(rank));
+  return reinterpret_cast<T*>(remote);
+}
+
 // Brings a tensor map (a __grid_constant__ parameter) into the descriptor
 // cache ahead of its first TMA copy.
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
@@ -458,6 +497,33 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, 
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+// A tensor map over a [B, S, H, D] tensor of `dtype` (`elem` bytes each) read
+// through its strides (in elements; the last dim contiguous): dims (D, H, S,
+// B), boxes of all D columns by `box_rows` rows of one head, landing as a
+// dense [box_rows x D] tile (no swizzle: CUDA cores read it, not wgmma),
+// zeros out of bounds. The caller guarantees TMA's rules: a 16-byte aligned
+// base, strides that are positive multiples of 16 bytes, D * elem a multiple
+// of 16 and D, box_rows at most 256. Returns 0, or an error code above.
+inline int encode_bshd_rows(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
+                            const void* base, int B, int S, int H, int D, long long sb,
+                            long long ss, long long sh, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrNoEncodeEntryPoint;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elem,
+                                 static_cast<cuuint64_t>(ss) * elem,
+                                 static_cast<cuuint64_t>(sb) * elem};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1u, static_cast<cuuint32_t>(box_rows),
+                             1u};
+  const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
+  const CUresult r =
+      fn(map, dtype, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }

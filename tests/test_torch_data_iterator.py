@@ -61,7 +61,10 @@ def test_cpu_pump_moves_nothing():
 def test_overlaps_host_and_consumer():
     """Host cost H per batch on the pump and consumer cost C per batch:
     serial time is N (H + C); the pump must save at least a quarter of it,
-    as the reference's test asks of ``iter_device_batches``."""
+    as the reference's test asks of ``iter_device_batches``. (With H = C
+    whether a given batch is already waiting is a tie that thread
+    scheduling breaks, so prefetch is checked apart, with events:
+    ``test_prefetches_while_the_consumer_works``.)"""
     H = C = 0.05
     n = 8
 
@@ -81,7 +84,31 @@ def test_overlaps_host_and_consumer():
     serial_floor = n * (H + C)
     assert overlapped < serial_floor * 0.75, (
         f"no overlap: {overlapped:.2f}s vs serial {serial_floor:.2f}s")
-    assert it.stats["ready"] >= n // 2  # prefetched while the consumer slept
+
+
+def test_prefetches_while_the_consumer_works():
+    """With the pump strictly ahead of its consumer, every batch but the
+    first is waiting when the consumer asks for it. The source marks batch
+    i queued when the pump comes back to it for more (the pump enqueues a
+    batch before it draws the next); the consumer, holding batch i, waits
+    for batch i + 1's mark before it asks, so no timing decides the count."""
+    n = 8
+    queued = [threading.Event() for _ in range(n)]
+
+    def source():
+        for i in range(n):
+            yield {"x": np.full(4, i)}
+            queued[i].set()
+
+    it = device_batches(source, 2, device="cpu")
+    seen = []
+    for batch in it:
+        i = int(batch["x"][0])
+        seen.append(i)
+        if i + 1 < n:
+            assert queued[i + 1].wait(30), f"batch {i + 1} never queued"
+    assert seen == list(range(n))
+    assert it.stats["ready"] >= n - 1, it.stats
 
 
 def test_errors_propagate_to_the_consumer():

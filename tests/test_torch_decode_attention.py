@@ -3,7 +3,9 @@ plain version held against the JAX package's cached attention of one query
 token, ``_attend_prefix_plus_self`` (the engine's per-slot step, with the
 self column) and ``_attend_cached`` at S = 1 (``generate``'s loop, without
 it); the CPU route; that a tensor off the CPU never reaches the plain
-version; what ``_check_operands`` refuses; and the kernel's launch plan.
+version; what ``_check_operands`` refuses; the kernel's launch plan, the
+Python mirror of its on-device split of each slot's rows, and the arguments
+of one launch.
 
 Inputs are made from a numpy seed and rounded to the dtype once, so both
 packages read the same values. Tolerances:
@@ -219,34 +221,176 @@ def test_check_takes_every_head_dim_and_a_layer_slice_of_the_cache(n_rep, d):
 
 def test_argtypes_pass_pointers_and_the_stream_as_pointers():
     got = da._ARGTYPES[("decode_attention", "decode_attention")]
-    assert got[:8] == [ctypes.c_void_p] * 8  # q .. workspace
-    assert got[8:14] == [ctypes.c_int] * 6  # dtype, B, H, Hkv, S_max, D
-    assert got[14:20] == [ctypes.c_int64] * 6  # cache strides
-    assert got[20:] == [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p]
+    assert got[:7] == [ctypes.c_void_p] * 7  # q .. out: no workspace
+    assert got[7:13] == [ctypes.c_int] * 6  # dtype, B, H, Hkv, S_max, D
+    assert got[13:19] == [ctypes.c_int64] * 6  # cache strides
+    # scale, then the plan: cluster, tile_rows, max_stages; the stream
+    assert got[19:] == [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p]
+    ring = da._ARGTYPES[("decode_attention", "decode_attention_ring")]
+    assert ring == [ctypes.c_int] * 9 + [ctypes.c_void_p]  # int[3] out
 
 
-@pytest.mark.parametrize("shape", [
-    (8, 8, 8, 1089, 128),  # bench_400m's inference leg
-    (8, 32, 32, 512, 128),  # serve_7b's engine
-    (10, 16, 4, 300, 64), (1, 4, 2, 40, 16), (64, 32, 32, 4096, 256),
-    (3, 12, 4, 7, 8),
-])
-def test_plan_covers_the_cache_and_sizes_the_workspace(shape):
-    b, h, hkv, s_max, d = shape
-    plan = da.launch_plan(b, h, hkv, s_max, d)
-    assert plan.chunk_rows % da.CHUNK_ALIGN == 0
-    assert (plan.n_chunks - 1) * plan.chunk_rows < s_max <= (
-        plan.n_chunks * plan.chunk_rows)
-    assert plan.workspace_floats == b * h * (s_max + 1 + plan.n_chunks * d)
+# (B, H, Hkv, S_max, D, SMs)
+PLAN_SHAPES = [
+    (8, 8, 8, 1089, 128, 132),  # bench_400m's inference leg
+    (8, 32, 32, 512, 128, 132),  # serve_7b's engine
+    (8, 8, 8, 1024, 128, 132),  # the 400M engine
+    (10, 16, 4, 300, 64, 132), (1, 4, 2, 40, 16, 132),
+    (64, 32, 32, 4096, 256, 132), (3, 12, 4, 7, 8, 132),
+    (1, 32, 1, 2048, 256, 33),
+]
 
 
-def test_plan_splits_the_sequence_only_when_kv_heads_leave_sms_idle():
-    """bench_400m decoding 8 sequences has 64 kv heads for 132 SMs: 9
-    chunks of 128 rows; on a card of 33 SMs, 3 of 384; 4 blocks per SM of
-    kv heads alone take one chunk."""
-    plan = da.launch_plan(8, 8, 8, 1089, 128)
-    assert (plan.n_chunks, plan.chunk_rows) == (9, 128)
-    small = da.launch_plan(8, 8, 8, 1089, 128, sms=33)
-    assert (small.n_chunks, small.chunk_rows) == (3, 384)
-    assert da.launch_plan(66, 8, 8, 1089, 128).n_chunks == 1
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_fits_the_card_and_covers_the_cache(shape):
+    """A portable cluster no larger than the cache has tiles, tiles within a
+    TMA box, scores for the largest share, a ring of at most a share's K and
+    V tiles (the kernel takes as many of them as the card's occupancy
+    allows, and checks a block's shared memory against its 227 KB on the
+    card), and one cluster per (slot, kv head, group of heads)."""
+    b, h, hkv, s_max, d, sms = shape
+    plan = da.launch_plan(b, h, hkv, s_max, d, sms)
+    tiles = -(-s_max // plan.tile_rows)
+    assert plan.cluster in da.CLUSTERS and plan.cluster <= tiles
+    assert 1 <= plan.tile_rows <= min(da.TILE_ROWS, s_max)
+    share_tiles = plan.share_rows // plan.tile_rows
+    assert share_tiles == -(-tiles // plan.cluster)
+    assert plan.max_stages == 2 * share_tiles >= 2
+    assert (h // hkv) % plan.heads == 0 and plan.heads in (1, 2, 4, 8)
+    assert plan.grid == (plan.cluster, b * h // plan.heads)
+    assert plan.cluster == 8 or plan.cluster * plan.grid[1] >= 2 * sms or (
+        2 * plan.cluster > tiles)
+
+
+def test_plan_clusters_follow_the_kv_heads_against_the_sms():
+    """The smallest cluster that gives each of 132 SMs two blocks: serve_7b's
+    256 kv heads take 2, bench_400m's 64 take 8; on a card of 33 SMs 1 and
+    2; a cache of 40 rows (3 tiles) stops at 2; GQA's groups count as kv
+    heads (n_rep 16 in groups of 8 doubles them)."""
+    assert da.launch_plan(8, 32, 32, 512, 128).cluster == 2
+    assert da.launch_plan(8, 8, 8, 1089, 128).cluster == 8
+    assert da.launch_plan(8, 8, 8, 1024, 128).cluster == 8
+    assert da.launch_plan(8, 32, 32, 512, 128, sms=33).cluster == 1
+    assert da.launch_plan(8, 8, 8, 1089, 128, sms=33).cluster == 2
+    assert da.launch_plan(8, 8, 8, 40, 128).cluster == 2
+    assert da.launch_plan(8, 128, 8, 1089, 128).cluster == 4
+    assert da.launch_plan(66, 8, 8, 1089, 128).cluster == 1
+
+
+def test_plan_rings_hold_a_share_at_the_serve_7b_step():
+    """At serve_7b's step (8 slots at 160 of 512, a cluster of 2) each block's
+    share is 5 K and 5 V tiles of 16 rows, and a ring as deep as the plan
+    allows holds all of them; at the inference leg (lengths up to 1088 of
+    1089, a cluster of 8) a share is 9 tiles of each."""
+    plan = da.launch_plan(8, 32, 32, 512, 128)
+    shares = [da.share_of(160, plan.tile_rows, plan.cluster, r)
+              for r in range(plan.cluster)]
+    assert shares == [(0, 80), (80, 160)]
+    assert plan.max_stages == 2 * 512 // 16 // 2 >= 2 * 5
+    leg = da.launch_plan(8, 8, 8, 1089, 128)
+    assert max(r1 - r0 for r0, r1 in (
+        da.share_of(1088, leg.tile_rows, leg.cluster, r)
+        for r in range(leg.cluster))) == 9 * 16
+    assert leg.max_stages == 2 * 9
+
+
+def test_a_refused_launch_raises_and_falls_back_to_nothing(monkeypatch):
+    """A CUDA tensor whose launch the library refuses (a cache too long for
+    a block's shared memory: cudaErrorInvalidValue) raises; the plain
+    version is not called, and ``launches`` does not count it."""
+    monkeypatch.setattr(da, "_check", lambda *a: None)
+    monkeypatch.setattr(da, "_kernel", lambda: lambda *args: 1)
+    monkeypatch.setattr(da, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+
+    def plain(*a):
+        raise AssertionError("the plain version ran for a device tensor")
+
+    monkeypatch.setattr(da, "decode_attention_reference", plain)
+    b, h, s_max, d = 1, 32, 1 << 20, 128
+    q = torch.empty((b, 1, h, d), dtype=torch.float32, device="meta")
+    k = torch.empty((b, s_max, 1, d), dtype=torch.float32, device="meta")
+    before = da.launches
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        da.decode_attention(q, k, k, torch.zeros((b,)).to("meta"))
+    assert da.launches == before
+
+
+@pytest.mark.parametrize("cluster", da.CLUSTERS)
+@pytest.mark.parametrize("tile_rows", [16, 7])
+def test_device_split_covers_the_valid_rows_once(cluster, tile_rows):
+    """The Python mirror of the device's split: for every length from 0 to
+    past S_max (clamped as the device clamps it), the cluster's shares, in
+    rank order, are consecutive, start at tile edges, and cover [0, n)
+    exactly once; a block past the slot's rows gets an empty share."""
+    s_max = 300
+    for length in range(0, s_max + 8):
+        n = min(max(length, 0), s_max)
+        shares = [da.share_of(n, tile_rows, cluster, r)
+                  for r in range(cluster)]
+        covered = [row for r0, r1 in shares for row in range(r0, r1)]
+        assert covered == list(range(n)), (n, shares)
+        for r0, r1 in shares:
+            assert r0 % tile_rows == 0 and r0 <= r1
+        # shares differ by one tile at most
+        tiles = [-(-(r1 - r0) // tile_rows) for r0, r1 in shares]
+        assert max(tiles) - min(tiles) <= 1
+
+
+def test_a_launch_passes_the_plan_and_no_workspace(monkeypatch):
+    """Past ``_check``, one kernel call per ``decode_attention`` call, with
+    the plan's cluster, tile rows and ring depth, and no workspace pointer;
+    ``launches`` counts it."""
+    calls = []
+
+    def kernel(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(da, "_check", lambda *a: None)
+    monkeypatch.setattr(da, "_kernel", lambda: kernel)
+    monkeypatch.setattr(da, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    b, h, s_max, d = 8, 32, 512, 128
+    q = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((b, s_max, h, d), dtype=torch.bfloat16, device="meta")
+    new = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device="meta")
+    before = da.launches
+    out = da.decode_attention(q, k, k, torch.full((b,), 160).to("meta"),
+                              new, new)
+    assert out.shape == q.shape and da.launches == before + 1
+    (args,) = calls
+    plan = da.launch_plan(b, h, h, s_max, d)
+    assert len(args) == len(da._ARGTYPES[("decode_attention",
+                                          "decode_attention")])
+    assert args[7:13] == (1, b, h, h, s_max, d)
+    assert args[-4:-1] == (plan.cluster, plan.tile_rows, plan.max_stages)
+
+
+def test_ring_asks_the_library_for_the_launch_plans_ring(monkeypatch):
+    """``ring`` passes the launch plan ``decode_attention`` would pass (the
+    dtype's code, the shapes, cluster, tile rows and ring depth) and reads
+    back the three ints the library writes: stages, shared memory and the
+    clusters the card holds at once."""
+    calls = []
+
+    def query(*args):
+        calls.append(args[:-1])
+        out = ctypes.cast(args[-1], ctypes.POINTER(ctypes.c_int))
+        out[0], out[1], out[2] = 10, 45000, 330
+        return 0
+
+    monkeypatch.setattr(da, "_kernel", lambda name: query)
+    monkeypatch.setattr(da, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
+    got = da.ring(torch.bfloat16, 8, 32, 32, 512, 128)
+    assert got == {"stages": 10, "smem_bytes": 45000,
+                   "clusters_at_once": 330}
+    plan = da.launch_plan(8, 32, 32, 512, 128)
+    assert calls == [(1, 8, 32, 32, 512, 128, plan.cluster, plan.tile_rows,
+                      plan.max_stages)]
