@@ -6,13 +6,15 @@
     timeout 600 python3 chip_smoke.py serve_7b # the serve_7b phase only
     timeout 600 python3 chip_smoke.py train    # the train phase only
     timeout 600 python3 chip_smoke.py inference  # the inference phase only
+    timeout 600 python3 chip_smoke.py mesh     # the mesh phase only
 
-Run from the repo root on a machine with one CUDA card. Nine phases; any
+Run from the repo root on a machine with one CUDA card. Ten phases; any
 failure raises and the script exits non-zero without a result line. With
 the argument ``kernel`` (or ``decode_kernel``, ``serve_7b``, ``train``,
-``inference``) it runs the kernel phases (or that phase, ``decode_kernel``
-building its kernel first) alone and prints no result line: the first call
-after a kernel (or that path) changes, under ``timeout``.
+``inference``, ``mesh``) it runs the kernel phases (or that phase,
+``decode_kernel`` building its kernel first) alone and prints no result
+line: the first call after a kernel (or that path) changes, under
+``timeout``.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -71,11 +73,26 @@ after a kernel (or that path) changes, under ``timeout``.
    of a replay, peak memory eager and captured, eager step ms, the pump's
    prefetch and hidden host time, and the checkpoint's bytes, snapshot ms,
    write and restore seconds.
-6. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
+6. mesh: ``bench_400m`` as the train phase trains it, over a one-card mesh:
+   a world-size-1 NCCL process group, ``build_mesh(MeshConfig(dp=1))``,
+   ``make_sharded_state`` / ``make_train_step`` with ``mesh=`` fed by
+   ``device_batches(..., sharding=batch_sharding(mesh))``, under
+   ``DEFAULT_RULES`` and then ``FSDP_RULES``, 6 steps each (step 1 the
+   warm-up, step 2 the capture, steps 3-6 replays), beside the one-device
+   step from the same seed and batches. Checks: losses, grad norms and
+   every parameter after step 6 equal the one-device step's (expected bit
+   for bit: every placement is whole at world size 1 and no collective
+   runs; a difference is printed and the loss must stay within
+   ``MESH_LOSS_RTOL``); one profiled replay of each launches the flash
+   kernels 48 / 24 / 24 times by name; the mesh state's checkpoint restores
+   into a one-device state bit for bit, and that state's into a mesh state.
+   Printed: replay ms (CUDA events) and peak memory of the one-device step
+   and of each rules table.
+7. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
    at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
    bf16 train steps' losses and grad norms, flash against dense (step 1
    held to a tolerance, the rest reported).
-7. inference: bench.py's inference leg (``measure_inference``) on the port:
+8. inference: bench.py's inference leg (``measure_inference``) on the port:
    ``bench_400m`` with dense attention, no remat, bf16, 8 prompts of 1024
    tokens, 64 new tokens, max_len 1089. ``prefill`` (TTFT) and
    ``decode_loop`` (decode tokens/s) timed at the second call of each, the
@@ -88,7 +105,7 @@ after a kernel (or that path) changes, under ``timeout``.
    TF32 off, the engine's decode program, captured with
    ``RAYTPU_DECODE_DEFERRED_WRITES`` unset and set, gives ``generate``'s
    tokens (the two structures bit for bit alike).
-8. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
+9. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
    greedy requests from client threads through its CUDA graphs (graph
    replays > 0, no decode step run eagerly during the traffic, one decode
    attention launch per layer per decode step); one
@@ -97,7 +114,7 @@ after a kernel (or that path) changes, under ``timeout``.
    and run eagerly, each profiled; then, in float32 with TF32 off, the
    engine's greedy tokens for 3 interleaved prompts must EQUAL
    ``generate``'s.
-9. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
+10. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
    heads x 128, full width and depth) from ``init_params_int8`` on the card
    (weight bytes and peak memory printed), served through ``LLMEngine``'s
    graphs at bench.py's shape (8 slots, max_len 512, prefill bucket 128,
@@ -1392,6 +1409,252 @@ def phase_train(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1],
     return out
 
 
+# The mesh phase: bench_400m trained over a one-card mesh (world size 1,
+# NCCL) under each rules table, held against the one-device step from the
+# same seed and batches. At world size 1 every placement is whole and no
+# collective runs, so the two are expected bit for bit; a difference would
+# be printed, and must stay within the reference's bf16 loss tolerance
+# (tests/test_model.py:138).
+MESH_STEPS = 6
+MESH_LOSS_RTOL = 5e-3
+
+
+@contextlib.contextmanager
+def one_card_process_group():
+    """A world-size-1 NCCL process group on this card (a free local port),
+    destroyed on the way out."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def mesh_train_run(cfg, cycle, mesh=None, rules=None) -> dict:
+    """``MESH_STEPS`` steps of a fresh state of seed ``SEED`` over ``cycle``
+    (through the pump; over ``mesh`` with ``rules`` when given, else on one
+    device): step 1 the warm-up, step 2 the capture, then replays. Returns
+    the metrics, the replays' ms (CUDA events), the memory the run adds to
+    what was allocated before it (the state's bytes, the peak, and the
+    peaks above the state during the warm-up and during the capture and
+    replays), one profiled replay's launches by kind, and the state and
+    step."""
+    from ray_tpu_torch.data import device_batches
+    from ray_tpu_torch.parallel import (
+        batch_sharding,
+        default_optimizer,
+        make_sharded_state,
+        make_train_step,
+    )
+
+    opt = default_optimizer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    if mesh is None:
+        state, _ = make_sharded_state(cfg, opt, SEED)
+        step = make_train_step(cfg, opt)
+        sharding = None
+    else:
+        state, sh = make_sharded_state(cfg, opt, SEED, mesh=mesh, rules=rules)
+        step = make_train_step(cfg, opt, mesh=mesh, state_shardings=sh,
+                               rules=rules)
+        sharding = batch_sharding(mesh, rules)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - before
+    pump = device_batches(
+        lambda: (cycle[i % len(cycle)] for i in range(MESH_STEPS)),
+        prefetch_batches=2, sharding=sharding)
+    metrics, events = [], []
+    for batch in pump:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        metrics.append(m)
+        events.append((start, end))
+        if len(metrics) == 1:  # the warm-up (AdamW's moments made here)
+            torch.cuda.synchronize()
+            warm_up_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        if sharding is not None:
+            check(all(type(v).__name__ == "DTensor" for v in batch.values()),
+                  "the mesh pump yielded tensors that are not DTensors")
+    torch.cuda.synchronize()
+    check(step.captures == 1 and step.replays == MESH_STEPS - 1,
+          f"{step.captures} captures, {step.replays} replays")
+    captured_peak = torch.cuda.max_memory_allocated()
+    peak = max(warm_up_peak, captured_peak) - before
+    above = {"state_bytes": state_bytes,
+             "warm_up": warm_up_peak - before - state_bytes,
+             "captured": captured_peak - base}
+    params = [_full(p).detach().clone() for p in _param_leaves(state)]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in cycle[0].items()}
+    prof = device_profile(lambda: step(state, batch), kinds=TRAIN_KINDS)
+    del batch
+    replay_ms = [a.elapsed_time(e) for a, e in events[2:]]
+    return {"metrics": [_metric(m) for m in metrics], "replay_ms": replay_ms,
+            "peak_bytes": peak, "memory_above_state": above,
+            "profile": prof, "params": params,
+            "launches": tuple(prof["launches_by_kind"][k]
+                              for k in FLASH_KINDS),
+            "state": state, "step": step}
+
+
+def _param_leaves(state) -> list:
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    return tree_leaves(state.params)
+
+
+def _state_full(state) -> list:
+    """Every tensor of a TrainState (``state_tensors``), whole."""
+    return [_full(t) for t in state_tensors(state)]
+
+
+def phase_mesh(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
+    """``bench_400m`` over a one-card mesh (``build_mesh(MeshConfig(dp=1))``
+    in a world-size-1 NCCL group): ``make_sharded_state(..., mesh=)`` and
+    ``make_train_step(..., mesh=)`` fed by ``device_batches(...,
+    sharding=batch_sharding(mesh))``, under ``DEFAULT_RULES`` and then
+    ``FSDP_RULES``, ``MESH_STEPS`` steps each (warm-up, capture, replays).
+    Each is held against the one-device step from the same seed and
+    batches: losses, grad norms and every parameter after the last step.
+    One profiled replay of each counts the flash kernels by name (48 / 24
+    / 24); the replays' ms (CUDA events) and the peak memory stand beside
+    the one-device step's. Then the mesh state's checkpoint restores into a
+    one-device state bit for bit, and the other way round."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.parallel import (
+        DEFAULT_RULES,
+        FSDP_RULES,
+        MeshConfig,
+        build_mesh,
+        default_optimizer,
+        make_sharded_state,
+    )
+    from ray_tpu_torch.train import load_sharded, save_sharded
+
+    check(cfg.attn_impl == "flash" and cfg.remat
+          and cfg.remat_policy == "dots", "bench_400m trains with flash "
+          "attention under remat 'dots'")
+    cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    out = {"phase": "mesh", "batch": [b, s], "n_layers": cfg.n_layers,
+           "steps": MESH_STEPS, "runs": {}}
+
+    def summary(run):
+        return {"losses": [m[0] for m in run["metrics"]],
+                "grad_norms": [m[1] for m in run["metrics"]],
+                "replay_ms": run["replay_ms"],
+                "replay_ms_mean": float(np.mean(run["replay_ms"])),
+                "peak_memory_bytes": run["peak_bytes"],  # above its start
+                "memory_above_state_bytes": run["memory_above_state"],
+                "launches_per_step": dict(zip(FLASH_KINDS, run["launches"])),
+                "profile_top_kernels_ms": run["profile"]["top_kernels_ms"],
+                "profile_device_ms_by_kind":
+                    run["profile"]["device_ms_by_kind"],
+                "profile_busy_share": run["profile"]["device_busy_share"]}
+
+    ref = mesh_train_run(cfg, cycle)
+    check(ref["launches"] == want, f"one device: a replay launched flash "
+          f"{ref['launches']}, not {want}")
+    ref_params = ref.pop("params")
+    out["runs"]["one_device"] = summary(ref)
+    del ref["state"], ref["step"]
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    with one_card_process_group():
+        mesh = build_mesh(MeshConfig(dp=1))
+        check(mesh.mesh_dim_names == ("dp",) and tuple(mesh.shape) == (1,),
+              f"mesh {mesh}")
+        try:
+            for name, rules in (("DEFAULT_RULES", DEFAULT_RULES),
+                                ("FSDP_RULES", FSDP_RULES)):
+                last_state = None  # one state on the card at a time
+                torch.cuda.empty_cache()
+                run = mesh_train_run(cfg, cycle, mesh, rules)
+                check(run["launches"] == want, f"{name}: a replay launched "
+                      f"flash {run['launches']}, not {want}")
+                params = run.pop("params")  # after the last step
+                differing = tensors_differing(params, ref_params)
+                max_diff = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(params, ref_params))
+                del params
+                same = run["metrics"] == ref["metrics"]
+                rel = max(abs(g[0] - r[0]) / abs(r[0]) for g, r in
+                          zip(run["metrics"], ref["metrics"]))
+                res = summary(run)
+                res.update({"metrics_bit_equal": same,
+                            "params_differing": differing,
+                            "params_max_abs_diff": max_diff,
+                            "loss_max_rel_diff": rel})
+                if not same or differing:
+                    print(f"chip_smoke mesh {name}: differs from one device: "
+                          f"{differing} params (max {max_diff}), loss rel "
+                          f"{rel}", flush=True)
+                check(rel <= MESH_LOSS_RTOL, f"{name}: loss differs from the "
+                      f"one-device step by {rel} relative")
+                out["runs"][name] = res
+                last_state, last_rules = run["state"], rules
+                del run["step"], run
+                torch.cuda.empty_cache()
+
+            # mesh -> one device, and one device -> mesh, bit for bit
+            save_sharded(last_state, f"{tmp}/mesh", step=MESH_STEPS + 1,
+                         wait=True)
+            one, _ = make_sharded_state(cfg, default_optimizer(), SEED + 7)
+            t0 = time.perf_counter()
+            load_sharded(f"{tmp}/mesh", like=one)
+            torch.cuda.synchronize()
+            restore_into_one_s = time.perf_counter() - t0
+            into_one = tensors_differing(_state_full(one),
+                                         _state_full(last_state))
+            save_sharded(one, f"{tmp}/one", step=MESH_STEPS + 1, wait=True)
+            del last_state
+            torch.cuda.empty_cache()
+            back, _ = make_sharded_state(cfg, default_optimizer(), SEED + 9,
+                                         mesh=mesh, rules=last_rules)
+            load_sharded(f"{tmp}/one", like=back)
+            into_mesh = tensors_differing(_state_full(back), _state_full(one))
+            check(into_one == 0 and into_mesh == 0,
+                  f"checkpoint restores differ: mesh -> one device "
+                  f"{into_one} tensors, one device -> mesh {into_mesh}")
+            out["checkpoint"] = {
+                "rules": "FSDP_RULES", "bytes_written": sum(
+                    f.stat().st_size for f in
+                    Path(tmp, "mesh", f"pieces_{MESH_STEPS + 1}").iterdir()),
+                "mesh_to_one_device_tensors_differing": into_one,
+                "one_device_to_mesh_tensors_differing": into_mesh,
+                "restore_into_one_device_s": restore_into_one_s}
+            del one, back
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["replay_ms_table"] = {k: v["replay_ms_mean"]
+                              for k, v in out["runs"].items()}
+    out["peak_memory_table"] = {k: v["peak_memory_bytes"]
+                                for k, v in out["runs"].items()}
+    emit(out)
+    return out
+
+
 # Flash against dense attention through the whole model:
 # - fp32 (TF32 off), 2 layers: the same math with sums in another order and
 #   expf; each leaf's grads may differ by 2e-4 of that leaf's largest dense
@@ -2197,9 +2460,9 @@ def main(argv) -> int:
               "card only", file=sys.stderr)
         return 1
     if argv not in ([], ["kernel"], ["decode_kernel"], ["serve_7b"],
-                    ["train"], ["inference"]):
+                    ["train"], ["inference"], ["mesh"]):
         print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
-              "train | inference]", file=sys.stderr)
+              "train | inference | mesh]", file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
@@ -2227,6 +2490,10 @@ def main(argv) -> int:
         phase_inference(TransformerConfig.bench_400m())
         print(smi, flush=True)
         return 0
+    if argv == ["mesh"]:
+        phase_mesh(TransformerConfig.bench_400m())
+        print(smi, flush=True)
+        return 0
     kernel = phase_kernel()
     int8 = phase_int8_kernel()
     dec = phase_decode_kernel()
@@ -2237,6 +2504,7 @@ def main(argv) -> int:
     params = init_params(cfg, SEED)
     phase_forward(params, cfg)
     train = phase_train(cfg)
+    mesh = phase_mesh(cfg)
     phase_grad(cfg)
     inference = phase_inference(cfg)
     phase_serve(params, cfg)
@@ -2246,6 +2514,9 @@ def main(argv) -> int:
     print(smi, flush=True)
     per_step = train["launches_per_step"]
     wrappers = train["wrapper_counts_in_run"]
+    # per replayed step over the one-card mesh (DEFAULT_RULES; FSDP_RULES
+    # checked equal in the mesh phase)
+    per_mesh_step = mesh["runs"]["DEFAULT_RULES"]["launches_per_step"]
     int8_step = int8["decode_step"]
     dec7, dec_inf = (dec["times"]["serve_7b_step"],
                      dec["times"]["inference_step"])
@@ -2255,6 +2526,7 @@ def main(argv) -> int:
          "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:72",
          "launches": per_step["flash_fwd"],
+         "launches_per_mesh_step": per_mesh_step["flash_fwd"],
          "wrapper_count_in_train_run": wrappers["flash_fwd"],
          "max_abs_err": kernel["cases"][0]["max_abs_err"],
          "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
@@ -2265,6 +2537,7 @@ def main(argv) -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:158",
          "fuses": "delta = rowsum(dO*O), ray_tpu/ops/flash_attention.py:247",
          "launches": per_step["flash_bwd_dq"],
+         "launches_per_mesh_step": per_mesh_step["flash_bwd_dq"],
          "wrapper_count_in_train_run": wrappers["flash_bwd_dq"],
          "max_abs_err": main_bwd["dq_max_abs_err"],
          "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_dq_plain_ms"],
@@ -2275,6 +2548,7 @@ def main(argv) -> int:
          "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:197",
          "launches": per_step["flash_bwd_dkv"],
+         "launches_per_mesh_step": per_mesh_step["flash_bwd_dkv"],
          "wrapper_count_in_train_run": wrappers["flash_bwd_dkv"],
          "max_abs_err": max(main_bwd["dk_max_abs_err"],
                             main_bwd["dv_max_abs_err"]),

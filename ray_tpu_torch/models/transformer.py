@@ -15,6 +15,20 @@ model is plain functions on tensors over that tree:
 
 Gradients flow through ``forward`` and ``loss_fn`` by autograd. The
 ring/ulysses attentions and the MoE FFN are not ported yet.
+
+Under a mesh (``parallel/mesh.py``) the same functions run over DTensors:
+the parameters carry the placements of ``param_logical_axes`` and the batch
+is split over the batch axes, and DTensor's sharding propagation places
+every op, as GSPMD places the reference's. Three things differ from the
+one-device path: the embedding is gathered per shard, vocab-parallel
+(``_embedding``; DTensor's own rule for ``F.embedding`` gives a masked
+partial sum whose backward torch 2.11 cannot redistribute), the rotary
+tables are replicated DTensors (DTensor refuses plain tensors beside
+DTensors), and the loss's log-softmax and target gather run per shard
+(over DTensors, gather's backward would copy the [B, S, V] fp32 zeros).
+Attention runs per shard (``flash_attention_sharded``, or the dense
+attention through ``attention_per_shard``). A mesh with pp > 1 raises: the
+layer stack split over pp needs the pipeline, which is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -32,7 +47,7 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.attention import attention_per_shard, causal_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,6 +273,7 @@ def _rotary(q, k, rotary_dim, positions):
     else:
         cos = torch.cos(freqs)[:, :, None, :]
         sin = torch.sin(freqs)[:, :, None, :]
+    cos, sin = _like(q, cos), _like(q, sin)
 
     def rot(x):
         xr, xp = x[..., :rotary_dim], x[..., rotary_dim:]
@@ -270,17 +286,77 @@ def _rotary(q, k, rotary_dim, positions):
     return rot(q), rot(k)
 
 
-def select_attn_fn(config: TransformerConfig):
+def _embedding(table, tokens, mesh):
+    """``table[tokens]`` over a mesh, vocab-parallel, as a DTensor that lies
+    as ``tokens`` do. Each rank indexes its own rows of the table (made
+    whole over every axis but the vocabulary's), ids outside them give
+    zeros, and the partial sums are reduced over the vocabulary's axes.
+    The table's gradient is a partial sum over the axes that split the
+    tokens, which the train step reduces. A table whole on every axis is
+    indexed as on one device."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ray_tpu_torch.parallel.mesh import local_box
+
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    if any(v and not p.is_replicate()
+           for v, p in zip(vocab, tokens.placements)):
+        raise ValueError("the tokens may not be split over the vocabulary's "
+                         "mesh axes")
+    rows = [Shard(0) if v else Replicate() for v in vocab]
+    grads = [Shard(0) if v else Replicate() if p.is_replicate() else Partial()
+             for v, p in zip(vocab, tokens.placements)]
+    out = [Partial() if v else p for v, p in zip(vocab, tokens.placements)]
+    lo, hi = local_box(mesh, table.shape, rows)[0]
+
+    def lookup(ids, tab):
+        if not any(vocab):
+            return tab[ids]
+        inside = (ids >= lo) & (ids < hi)
+        got = tab[torch.where(inside, ids - lo, 0)]
+        return got * inside[..., None].to(got.dtype)
+
+    x = local_map(lookup, out_placements=(out,),
+                  in_placements=(tuple(tokens.placements), rows),
+                  in_grad_placements=(tuple(tokens.placements), grads),
+                  device_mesh=mesh,
+                  redistribute_inputs=True)(tokens, table)
+    return x.redistribute(mesh, tokens.placements)
+
+
+def _like(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t``, the same on every rank, as a replicated DTensor on ``ref``'s
+    mesh when ``ref`` is a DTensor; else ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def select_attn_fn(config: TransformerConfig, mesh=None):
     c = config
     if c.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={c.attn_impl!r} is not ported yet"
         )
     if c.attn_impl == "flash":
-        from ray_tpu_torch.ops.flash_attention import flash_attention
+        from ray_tpu_torch.ops.flash_attention import (
+            flash_attention,
+            flash_attention_sharded,
+        )
 
+        # The kernels see plain tensors: under a mesh they run per shard
+        # (batch over dp, heads over tp), as the reference's shard_map does.
+        if mesh is not None:
+            return functools.partial(flash_attention_sharded, mesh=mesh)
         return flash_attention
     if c.attn_impl == "dense":
+        if mesh is not None:
+            return functools.partial(attention_per_shard, causal_attention,
+                                     mesh=mesh)
         return causal_attention
     raise ValueError(f"unknown attn_impl {c.attn_impl!r}")
 
@@ -420,13 +496,26 @@ def forward(
     params: Dict,
     tokens: torch.Tensor,  # [B, S] integer
     config: TransformerConfig,
+    mesh=None,
     return_aux: bool = False,
 ):
-    """Returns logits [B, S, vocab] (and the MoE aux loss if return_aux)."""
+    """Returns logits [B, S, vocab] (and the MoE aux loss if return_aux).
+
+    Under ``mesh`` the params and ``tokens`` are DTensors on it (see the
+    module docstring) and so are the logits."""
     c = config
-    x = params["embed"][tokens].to(c.dtype)  # [B, S, D]
+    if mesh is None:
+        x = params["embed"][tokens].to(c.dtype)  # [B, S, D]
+    else:
+        from ray_tpu_torch.parallel.mesh import axis_size
+
+        if axis_size(mesh, "pp") > 1:
+            raise NotImplementedError(
+                "a mesh with pp > 1 splits the layer stack over pipeline "
+                "stages, which needs the pipeline schedule (not ported yet)")
+        x = _embedding(params["embed"], tokens, mesh).to(c.dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    attn_fn = select_attn_fn(c)
+    attn_fn = select_attn_fn(c, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = remat_wrap(
         lambda x, lp: apply_layer(x, lp, c, positions, attn_fn), c)
@@ -437,14 +526,33 @@ def forward(
     return (logits, aux) if return_aux else logits
 
 
+def _target_log_probs(logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """log_softmax(logits) at the targets, in fp32: [B, S, V], [B, S] ->
+    [B, S]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return logp.gather(-1, targets[..., None].long())[..., 0]
+
+
 def loss_fn(
     params: Dict,
     batch: Dict[str, torch.Tensor],  # tokens [B,S], targets [B,S], mask [B,S]
     config: TransformerConfig,
+    mesh=None,
 ) -> torch.Tensor:
-    logits, aux = forward(params, batch["tokens"], config, return_aux=True)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, batch["targets"][..., None].long())[..., 0]
+    logits, aux = forward(params, batch["tokens"], config, mesh,
+                          return_aux=True)
+    targets = batch["targets"]
+    if mesh is None:
+        ll = _target_log_probs(logits, targets)
+    else:
+        # Per shard, the vocabulary whole (gathered first where it is split):
+        # as plain tensors, gather's backward scatters in place, where over
+        # DTensors it copies the [B, S, V] fp32 zeros first (~1.4 ms a step).
+        rows = tuple(targets.placements)
+        ll = local_map(_target_log_probs, out_placements=(rows,),
+                       in_placements=(rows, rows), device_mesh=mesh,
+                       redistribute_inputs=True)(logits, targets)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(ll)

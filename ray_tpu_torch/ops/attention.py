@@ -3,11 +3,13 @@
 Port of ``ray_tpu/ops/attention.py``. The oracle for every attention test of
 the port, and the ``attn_impl="dense"`` path of the transformer. Scores are
 taken in fp32 from the input dtype, as JAX's ``preferred_element_type``.
+Over a mesh an attention runs per shard (``attention_per_shard``): batch
+rows and heads attend independently.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Callable, Tuple, Union
 
 import torch
 
@@ -90,3 +92,33 @@ def blockwise_finalize(acc: torch.Tensor, l: torch.Tensor,
     """acc [B, Sq, H, D], l [B, H, Sq] -> normalized output in `dtype`."""
     denom = torch.clamp(l, min=1e-30).permute(0, 2, 1)[..., None]
     return (acc / denom).to(dtype)
+
+
+def attention_per_shard(fn: Callable, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, *, mesh, dp_axis=("dp", "ep"),
+                        tp_axis: str = "tp") -> torch.Tensor:
+    """``fn(q, k, v)`` on each rank's [B/dp, S, H/tp, D] shard of the
+    DTensors q, k, v on ``mesh``, through ``local_map``: batch over
+    ``dp_axis``, heads over ``tp_axis``, the sequence whole (inputs that lie
+    otherwise are redistributed first, as ``shard_map`` reshards). The
+    output is a DTensor of that layout. The kv heads must divide over tp."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from ray_tpu_torch.parallel.mesh import (
+        AxisRules,
+        axis_size,
+        logical_to_placements,
+    )
+
+    tp = axis_size(mesh, tp_axis)
+    if k.shape[2] % tp:
+        raise ValueError(
+            f"kv heads ({k.shape[2]}) must divide over tp={tp} for the "
+            "attention to run per shard; use more kv heads or a smaller tp "
+            "axis"
+        )
+    rules = AxisRules((("batch", dp_axis), ("heads", tp_axis)))
+    spec = logical_to_placements(mesh, rules, ("batch", None, "heads", None))
+    return local_map(fn, out_placements=(spec,),
+                     in_placements=(spec, spec, spec), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)

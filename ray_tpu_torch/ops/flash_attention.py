@@ -42,11 +42,12 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
+from ray_tpu_torch.ops.attention import NEG_INF, attention_per_shard, repeat_kv
 
 # Kernel launches since import (or since a caller reset them).
 launches = 0  # flash_fwd
@@ -397,3 +398,24 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention on one device: [B, S, H, D] in, [B, S, H, D] out."""
     return flash_attention_fwd(q, k, v, causal)[0]
+
+
+def flash_attention_sharded(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mesh,
+    dp_axis=("dp", "ep"), tp_axis: str = "tp", **kw,
+) -> torch.Tensor:
+    """Flash attention over a mesh (``ray_tpu/ops/flash_attention.py:361``):
+    each rank runs ``flash_attention`` (the kernels, or on the CPU their
+    plain versions) on its own [B/dp, S, H/tp, D] shard, through
+    ``local_map`` (``attention_per_shard``), as the reference runs it under
+    ``shard_map``. q, k and v are DTensors on ``mesh`` (redistributed first
+    when they lie otherwise: batch over ``dp_axis``, heads over
+    ``tp_axis``); so is the output. Requires sp = 1 (sequence-parallel
+    attention is ring attention's)."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+
+    if axis_size(mesh, "sp") != 1:
+        raise ValueError("flash attention requires sp=1; use attn_impl='ring'")
+    return attention_per_shard(functools.partial(flash_attention, **kw),
+                               q, k, v, mesh=mesh, dp_axis=dp_axis,
+                               tp_axis=tp_axis)

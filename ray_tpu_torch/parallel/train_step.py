@@ -1,18 +1,29 @@
-"""Train state and train step on one device (PyTorch port).
+"""Train state and train step, on one device or over a device mesh
+(PyTorch port).
 
-Port of ``ray_tpu/parallel/train_step.py`` without the mesh: ``TrainState``,
-``make_sharded_state`` (:56), ``make_train_step`` (:99) and
-``default_optimizer`` (:142). The step takes the loss's gradients by
-autograd, clips them by their global norm, and applies AdamW, all on the
+Port of ``ray_tpu/parallel/train_step.py``: ``TrainState``,
+``batch_sharding`` (:51), ``make_sharded_state`` (:56), ``make_train_step``
+(:99) and ``default_optimizer`` (:142). The step takes the loss's gradients
+by autograd, clips them by their global norm, and applies AdamW, all on the
 card and without a host sync: its metrics stay device tensors.
+
+Over a mesh (``parallel/mesh.py``), DP, FSDP and TP are placements, as
+they are shardings in the reference: the parameters and AdamW's moments are
+DTensors laid out by ``param_logical_axes`` under the rules, the batch is
+split over the batch axes, and the same step body runs over DTensors. Each
+gradient is reduced into its parameter's placements (an all-reduce or a
+reduce-scatter over the batch axes) before the clip, whose norm is taken
+over the whole gradient.
 
 Where JAX donates the state to a jitted step (``donate_argnums``, :133-139),
 the port updates parameters, optimizer state and ``step`` in place, and on
 CUDA runs the whole step as one captured program: the first call with a
 batch of new shapes is a real step run eagerly (the warm-up), the next one
 captures a CUDA graph of the step and replays it, and every later call
-copies its batch into the graph's static buffers and replays. Sharding over
-a mesh (DP/FSDP/TP) waits for the port's ``parallel/mesh.py``.
+copies its batch into the graph's static buffers and replays. Over a mesh
+the graph holds the DTensors' local kernels and any collectives, and its
+static buffers are the local tensors of DTensors: DTensor's host-side
+dispatch is paid at the warm-up and the capture only.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import dataclasses
 from typing import Callable, ClassVar, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from ray_tpu_torch import graphs
 from ray_tpu_torch.device import DeviceLike, resolve_device
@@ -28,8 +40,16 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     loss_fn,
+    param_logical_axes,
     tree_leaves,
     tree_map,
+)
+from ray_tpu_torch.parallel.mesh import (
+    DEFAULT_RULES,
+    AxisRules,
+    logical_to_placements,
+    mesh_device,
+    shardings_for,
 )
 
 
@@ -72,7 +92,7 @@ class ClippedAdamW:
         norm = global_norm(grads)
         scale = torch.where(norm < self.MAX_NORM, torch.ones_like(norm),
                             self.MAX_NORM / norm)
-        torch._foreach_mul_(grads, scale)
+        torch._foreach_mul_([_local(g) for g in grads], scale)
         return norm
 
 
@@ -83,9 +103,22 @@ def default_optimizer(lr: float = 3e-4,
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    in fp32."""
+    in fp32. A DTensor's norm is over the whole tensor: the norms of its
+    shards are combined across the mesh."""
     norms = torch._foreach_norm([t.float() for t in tensors])
+    norms = [n.full_tensor() if isinstance(n, DTensor) else n for n in norms]
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (the memory it owns); a tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def batch_sharding(mesh, rules: AxisRules = DEFAULT_RULES) -> Tuple:
+    """Tokens/targets [B, S]: batch over dp(+ep), sequence over sp, as
+    ``(mesh, placements)`` (what ``data.device_batches`` takes)."""
+    return mesh, logical_to_placements(mesh, rules, ("batch", "seq"))
 
 
 def make_sharded_state(
@@ -94,28 +127,65 @@ def make_sharded_state(
     seed: int,
     device: Union[DeviceLike, Sequence[DeviceLike]] = None,
     params: Optional[Dict] = None,
-) -> Tuple[TrainState, None]:
-    """Returns (state, None): params from ``init_params(config, seed)`` or,
-    when given, ``params`` (such as the JAX package's, converted by
-    ``params_from_numpy``; they are then updated in place), on ``device``
-    (CUDA by default), and the optimizer's state. The second value stands
-    for the JAX version's state shardings, which one device does not have.
-    """
+    *,
+    mesh=None,
+    rules: AxisRules = DEFAULT_RULES,
+) -> Tuple[TrainState, Optional[TrainState]]:
+    """Returns (state, state_shardings): params from ``init_params(config,
+    seed)`` or, when given, ``params`` (such as the JAX package's, converted
+    by ``params_from_numpy``), on ``device`` (CUDA by default), and the
+    optimizer's state.
+
+    Without ``mesh`` the state lies on one device, given params are updated
+    in place, and the second value is None (one device has no shardings).
+    With ``mesh`` every parameter is a DTensor with the placements of
+    ``param_logical_axes(config)`` under ``rules``: every rank makes (or is
+    given) the same global values and keeps its own box of each, so a seed
+    gives the same global state on every mesh shape and world size. AdamW's
+    moments, made at the first step, lie as their parameters do; ``step``
+    and AdamW's count are replicated. ``state_shardings`` is a
+    ``TrainState`` of placements: ``step`` replicated, ``params`` the
+    parameters' and ``opt_state`` the moments' (the same tree)."""
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
-            raise NotImplementedError(
-                f"a train state over {len(device)} devices needs a mesh, "
-                "which is not ported yet; pass one device"
-            )
+            raise ValueError(
+                f"a train state over {len(device)} devices is laid out on a "
+                "mesh: pass mesh=build_mesh(...) (parallel/mesh.py), not a "
+                "list of devices")
         device = device[0]
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+        if params is None:
+            params = init_params(config, seed, dev)
+        params = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                          params)
+        state = TrainState(step=torch.zeros((), dtype=torch.int32,
+                                            device=dev),
+                           params=params, opt_state=optimizer.init(params))
+        return state, None
+    dev = mesh_device(mesh, device)
     if params is None:
         params = init_params(config, seed, dev)
-    params = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
-                      params)
+    # in the params' own key order (a converted tree's keys are sorted)
+    placements = _tree_zip(lambda _, pl: pl, params, shardings_for(
+        mesh, rules, param_logical_axes(config)))
+    params = _tree_zip(
+        lambda t, pl: distribute_tensor(
+            t.detach().to(dev), mesh, pl,
+            src_data_rank=None).requires_grad_(True),
+        params, placements)
     state = TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
                        params=params, opt_state=optimizer.init(params))
-    return state, None
+    replicated = (Replicate(),) * mesh.ndim
+    return state, TrainState(step=replicated, params=placements,
+                             opt_state=placements)
+
+
+def _tree_zip(fn: Callable, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_zip(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
 
 
 def make_train_step(
@@ -123,15 +193,38 @@ def make_train_step(
     optimizer: ClippedAdamW,
     loss: Callable = loss_fn,
     grads_fn: Optional[Callable] = None,
+    *,
+    mesh=None,
+    state_shardings: Optional[TrainState] = None,
+    rules: AxisRules = DEFAULT_RULES,
 ) -> "TrainStep":
     """(state, batch) -> (state, metrics), updating the state in place.
 
-    ``loss(params, batch, config)`` is differentiated by autograd unless
+    ``loss(params, batch, config)`` (under a mesh ``loss(params, batch,
+    config, mesh)``) is differentiated by autograd unless
     ``grads_fn(params, batch) -> (loss, grads)`` is given (a schedule with a
     hand-written backward). ``metrics`` = {loss, grad_norm (of the raw
     grads, before clipping), step}: device tensors of their own at every
-    call. On CUDA the step runs as one captured program (``TrainStep``); on
-    the CPU it runs eagerly."""
+    call, whole on every rank. On CUDA the step runs as one captured program
+    (``TrainStep``); on the CPU it runs eagerly.
+
+    With ``mesh`` the state is ``make_sharded_state(..., mesh=mesh)``'s
+    (its parameters must lie as ``state_shardings.params`` says, when
+    given), and the batch is split as ``batch_sharding(mesh, rules)``: a
+    batch of DTensors is taken as it lies, and a batch of whole tensors
+    (the same on every rank) is cut to each rank's box. Every gradient is
+    reduced into its parameter's placements before the clip."""
+    if mesh is None:
+        if state_shardings is not None:
+            raise ValueError("state_shardings needs the mesh they lie on")
+        place = None
+    else:
+        _, batch_placements = batch_sharding(mesh, rules)
+
+        def place(batch):
+            return {k: v if isinstance(v, DTensor) else distribute_tensor(
+                        v, mesh, batch_placements, src_data_rank=None)
+                    for k, v in batch.items()}
 
     def body(state: TrainState, batch: Dict[str, torch.Tensor]):
         leaves = tree_leaves(state.params)
@@ -139,17 +232,41 @@ def make_train_step(
             loss_val, grads = grads_fn(state.params, batch)
             for p, g in zip(leaves, tree_leaves(grads)):
                 p.grad = g
-        else:
+        elif mesh is None:
             loss_val = loss(state.params, batch, config)
             loss_val.backward()
-        grad_norm = optimizer.clip_([p.grad for p in leaves])
+        else:
+            loss_val = loss(state.params, batch, config, mesh)
+            loss_val.backward()
+        grad_norm = optimizer.clip_([_reduced_grad(p) for p in leaves])
         state.opt_state.step()
         for p in leaves:
             p.grad = None  # next step's backward starts from no grads
         state.step.add_(1)
+        if isinstance(loss_val, DTensor):
+            loss_val = loss_val.full_tensor()
         return loss_val.detach(), grad_norm
 
-    return TrainStep(body)
+    check = None
+    if state_shardings is not None:
+        def check(state: TrainState) -> None:
+            if not all(tree_leaves(_tree_zip(
+                    lambda p, pl: tuple(p.placements) == tuple(pl),
+                    state.params, state_shardings.params))):
+                raise ValueError("the state's parameters do not lie as "
+                                 "state_shardings says")
+
+    return TrainStep(body, place=place, check=check)
+
+
+def _reduced_grad(p: torch.Tensor) -> torch.Tensor:
+    """``p.grad``, redistributed into ``p``'s placements when it lies
+    otherwise (a Partial sum over the batch axes becomes an all-reduce, or
+    a reduce-scatter onto a sharded parameter)."""
+    g = p.grad
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        g = p.grad = g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @dataclasses.dataclass
@@ -180,10 +297,17 @@ class TrainStep:
     holds the step's activations and grads (never more than one step runs
     at a time). A failed capture raises; nothing falls back to the eager
     step. ``eager`` runs one step eagerly whatever the device (what the
-    warm-up runs), to hold a captured step against it."""
+    warm-up runs), to hold a captured step against it.
 
-    def __init__(self, body: Callable):
+    A mesh step's batch may be DTensors: its programs' static buffers are
+    then DTensors of the same placements, and a replay copies the local
+    tensors."""
+
+    def __init__(self, body: Callable, place: Optional[Callable] = None,
+                 check: Optional[Callable] = None):
         self._body = body
+        self._place = place  # a mesh step's batch placement
+        self._check = check  # a mesh step's check of the state's layout
         self._state: Optional[TrainState] = None
         self._bound: Tuple = ()
         self._warm: set = set()
@@ -195,6 +319,8 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         self._bind(state)
+        if self._place is not None:
+            batch = self._place(batch)
         if state.step.device.type == "cuda":
             loss_val, grad_norm = self._on_cuda(state, batch)
         else:
@@ -204,6 +330,8 @@ class TrainStep:
     def eager(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One step run eagerly on the current stream, as the warm-up runs
         it (on any state: no program is involved)."""
+        if self._place is not None:
+            batch = self._place(batch)
         loss_val, grad_norm = self._body(state, batch)
         return state, _metrics(loss_val, grad_norm, state.step)
 
@@ -211,6 +339,8 @@ class TrainStep:
         bound = (state, state.step, state.opt_state,
                  *tree_leaves(state.params))
         if self._state is None:
+            if self._check is not None:
+                self._check(state)
             self._state, self._bound = state, bound
             return
         if len(bound) != len(self._bound) or any(
@@ -222,7 +352,8 @@ class TrainStep:
 
     def _on_cuda(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         dev = state.step.device
-        key = tuple(sorted((k, tuple(v.shape), v.dtype)
+        key = tuple(sorted((k, tuple(v.shape), v.dtype,
+                            tuple(getattr(v, "placements", ())))
                            for k, v in batch.items()))
         with torch.cuda.device(dev):
             if key not in self._warm:
@@ -234,7 +365,7 @@ class TrainStep:
                 program = self._programs[key] = self._capture(state, batch,
                                                               dev)
             for k, buf in program.batch.items():
-                buf.copy_(batch[k], non_blocking=True)
+                _local(buf).copy_(_local(batch[k]), non_blocking=True)
             program.graph.replay()
             self.replays += 1
             return program.loss, program.grad_norm
@@ -248,7 +379,7 @@ class TrainStep:
         def body():
             moved = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
             for v in moved.values():
-                v.record_stream(self._side)
+                _local(v).record_stream(self._side)
             return self._body(state, moved)
 
         return graphs.warm_up(body, dev, self._side)
@@ -257,13 +388,22 @@ class TrainStep:
         """Captures one step over static batch buffers (``graphs.capture``,
         thread-local mode: a batch pump's thread may pin memory and copy on
         its own stream meanwhile)."""
-        static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
-                  for k, v in batch.items()}
+        static = {k: _empty_like(v, dev) for k, v in batch.items()}
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         cap = graphs.capture(lambda: self._body(state, static), self._pool)
         self.captures += 1
         return _Program(cap.graph, static, *cap.result, cap.launches)
+
+
+def _empty_like(v: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A static buffer for ``v`` on ``dev``: a DTensor of ``v``'s layout
+    over a new local tensor, or a new tensor."""
+    if not isinstance(v, DTensor):
+        return torch.empty(v.shape, dtype=v.dtype, device=dev)
+    local = torch.empty(v.to_local().shape, dtype=v.dtype, device=dev)
+    return DTensor.from_local(local, v.device_mesh, v.placements,
+                              shape=v.shape, stride=v.stride())
 
 
 def _metrics(loss_val, grad_norm, step) -> Dict[str, torch.Tensor]:

@@ -2,11 +2,17 @@
 ``ray_tpu/train/sharded_checkpoint.py``), in the same on-disk format, so
 that each package reads the other's checkpoints:
 
-- every process writes only the pieces it holds: here, where tensors are
-  not sharded yet, process 0 writes each array leaf whole and the others
-  write their (empty) index and marker, as replicas with ``replica_id != 0``
-  do in the reference. Each piece is a step-scoped ``pieces_<step>/*.npy``
-  file, listed in a per-process ``index_<pid>.<step>.pkl``;
+- every process writes only the pieces it holds. A DTensor leaf (a state
+  over a mesh, ``parallel/mesh.py``) is written as the reference writes a
+  sharded array: each process writes its local tensor with its global index
+  box (``mesh.local_box``), and of the ranks that hold the same box (the
+  replicas along the mesh axes on which the leaf is replicated) only the one
+  at coordinate 0 of each such axis writes it, as only ``replica_id == 0``
+  does in the reference. A leaf that is not a DTensor is whole on every
+  process: process 0 writes it. Each piece is a step-scoped
+  ``pieces_<step>/*.npy`` file, listed in a per-process
+  ``index_<pid>.<step>.pkl``; a process that holds nothing to write writes
+  its (empty) index and its marker;
 - the snapshot is the consistency point. The port, unlike JAX, updates
   parameters in place, so ``save_sharded`` copies every CUDA tensor on the
   device, on the current (the step's) stream, before it returns: the next
@@ -18,7 +24,9 @@ that each package reads the other's checkpoints:
   checkpoint without a COMMIT that matches its manifest's step is torn and
   is refused;
 - restore reassembles any requested box of a leaf from the stored pieces
-  (slice intersection), the one-device form of restoring onto another mesh.
+  (slice intersection): a DTensor leaf of ``like`` is filled with its own
+  rank's box, so a checkpoint restores onto any mesh shape and world size,
+  and into one unsharded process.
 
 Leaf keys are the strings ``jax.tree_util.keystr`` writes, by the port's own
 copy of its rules: a dict key as ``['name']``, a list or tuple index as
@@ -44,7 +52,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from ray_tpu_torch.parallel.mesh import local_box
 from ray_tpu_torch.parallel.train_step import TrainState
 
 MANIFEST_FILE = "manifest.json"
@@ -217,12 +227,29 @@ class ShardedSaveHandle:
 
 
 def _snapshot(leaf):
-    """A copy of an array leaf that the caller's later work cannot change:
-    tensors are cloned on their device (on CUDA, queued on the current
-    stream), numpy arrays copied."""
+    """A copy of an array leaf (a DTensor's local tensor) that the caller's
+    later work cannot change: tensors are cloned on their device (on CUDA,
+    queued on the current stream), numpy arrays copied."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.to_local()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().clone()
     return np.array(leaf)
+
+
+def _own_piece(leaf: DTensor):
+    """The global box of this rank's local tensor of ``leaf``, or None when
+    a replica at a lower mesh coordinate writes that box (the rank is not
+    at coordinate 0 of every axis on which ``leaf`` is replicated)."""
+    mesh = leaf.device_mesh
+    coord = mesh.get_coordinate()
+    for placement, c in zip(leaf.placements, coord):
+        if placement.is_partial():
+            raise ValueError(f"cannot checkpoint a {placement} DTensor: it "
+                             "holds no value until reduced")
+        if placement.is_replicate() and c != 0:
+            return None
+    return local_box(mesh, leaf.shape, leaf.placements)
 
 
 # Bytes per host copy of a CUDA snapshot: the background write moves each
@@ -282,9 +309,12 @@ def save_sharded(state, path: str, *, step: int = 0,
         if isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
             meta[key] = {"shape": list(leaf.shape),
                          "dtype": _dtype_name(leaf)}
-            if pid == 0:  # unsharded: the other processes hold replicas
-                my_pieces.append([key, [(0, d) for d in leaf.shape],
-                                  _snapshot(leaf)])
+            if isinstance(leaf, DTensor):
+                box = _own_piece(leaf)
+            else:  # whole on every process: process 0 writes it
+                box = [(0, d) for d in leaf.shape] if pid == 0 else None
+            if box is not None:
+                my_pieces.append([key, box, _snapshot(leaf)])
         elif pid == 0:
             aux[key] = leaf
             meta[key] = {"aux": True}
@@ -446,6 +476,17 @@ class _Checkpoint:
                          np.dtype(m["dtype"]))
 
 
+def _fill(ckpt: _Checkpoint, key: str, t: torch.Tensor) -> None:
+    """Copies the leaf ``key`` into ``t`` in place: a DTensor's local
+    tensor takes its own rank's box, a tensor the whole leaf."""
+    if isinstance(t, DTensor):
+        box = local_box(t.device_mesh, t.shape, t.placements)
+        t = t.to_local()
+    else:
+        box = None
+    t.copy_(torch.from_numpy(ckpt.read(key, box)))
+
+
 def _restore_train_state(ckpt: _Checkpoint, state: TrainState) -> None:
     """Fills a live port ``TrainState`` in place from the reference's keys:
     the same tensors keep their memory (a captured step keeps reading
@@ -455,18 +496,17 @@ def _restore_train_state(ckpt: _Checkpoint, state: TrainState) -> None:
         state.step.copy_(torch.from_numpy(ckpt.read(_STEP_KEY)))
         count = float(ckpt.read(_ADAM_KEY + ".count"))
         for k, p in params:
-            p.copy_(torch.from_numpy(ckpt.read(_PARAMS_KEY + k)))
+            _fill(ckpt, _PARAMS_KEY + k, p)
             st = _adam_state(state.opt_state, p, create=True)
             st["step"].fill_(count)
-            st["exp_avg"].copy_(torch.from_numpy(ckpt.read(
-                _ADAM_KEY + ".mu" + k)))
-            st["exp_avg_sq"].copy_(torch.from_numpy(ckpt.read(
-                _ADAM_KEY + ".nu" + k)))
+            _fill(ckpt, _ADAM_KEY + ".mu" + k, st["exp_avg"])
+            _fill(ckpt, _ADAM_KEY + ".nu" + k, st["exp_avg_sq"])
 
 
 def _rebuild(ckpt: _Checkpoint, tree, prefix: str = ""):
     """``tree`` with every leaf replaced by the checkpoint's value: a tensor
-    on that leaf's device, numpy, or the aux value."""
+    on that leaf's device (a DTensor of its layout, its own box read), numpy,
+    or the aux value."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -475,6 +515,11 @@ def _rebuild(ckpt: _Checkpoint, tree, prefix: str = ""):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(ckpt, v, f"{prefix}[{i}]")
                           for i, v in enumerate(tree))
+    if isinstance(tree, DTensor):
+        box = local_box(tree.device_mesh, tree.shape, tree.placements)
+        local = torch.from_numpy(ckpt.read(prefix, box)).to(tree.device)
+        return DTensor.from_local(local, tree.device_mesh, tree.placements,
+                                  shape=tree.shape, stride=tree.stride())
     value = ckpt.read(prefix)
     if isinstance(tree, torch.Tensor):
         return torch.from_numpy(value).to(tree.device)
@@ -488,8 +533,9 @@ def load_sharded(path: str, *, like=None, slices=None):
     may map a leaf key to the box to read of it (a tuple of slices, or
     [(start, stop), ...] per dim), reassembled from the stored pieces by
     slice intersection. With ``like`` a port ``TrainState``: that state,
-    filled in place. With ``like`` any other tree of tensors: a tree of
-    the same structure, each tensor on its leaf's device."""
+    filled in place (a state over a mesh: each rank reads its own boxes).
+    With ``like`` any other tree of tensors: a tree of the same structure,
+    each tensor on its leaf's device (DTensors laid out as theirs)."""
     ckpt = _Checkpoint(path)
     if like is None:
         slices = slices or {}

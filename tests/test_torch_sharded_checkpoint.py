@@ -10,6 +10,7 @@ for fp32, loss and grad norm at rtol 1e-5 and params at atol 2e-5 (the same
 math; XLA and PyTorch sum in other orders). Everything else is bit for bit.
 """
 
+import json
 import os
 import pickle
 import socket
@@ -38,6 +39,8 @@ from ray_tpu_torch.train import (
     load_sharded,
     save_sharded,
 )
+
+from tests.torch_gloo import run_ranks
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -435,3 +438,190 @@ def test_two_processes_save_one_replicated_state(tmp_path):
     with open(os.path.join(path, "index_0.3.pkl"), "rb") as f:
         assert sorted(pickle.load(f)) == ["['b']", "['w']"]
     assert jck.load_sharded(path)["['step']"] == 3
+
+
+# -- states over a mesh: four gloo processes ----------------------------------
+#
+# The counterpart of tests/test_sharded_checkpoint.py:39-93 on the port's
+# DTensor states (tests/torch_gloo.py): a port save from a 2 x 2 ("dp",
+# "tp") mesh restores bit for bit into a dp = 4 FSDP mesh (in the ranks),
+# into one unsharded process and into JAX on dp = 2, tp = 4 (here); a JAX
+# dp = 2, tp = 4 save restores bit for bit into the port's 2 x 2 mesh (in
+# the ranks). The port's save is taken while the next step runs (the
+# snapshot rule, for local shards).
+
+_MESH_SCRIPT = """
+import json
+import pickle
+import numpy as np
+import torch
+from ray_tpu_torch.models import transformer as ttf
+from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.parallel import mesh as tmesh
+from ray_tpu_torch.parallel import train_step as tts
+from ray_tpu_torch.train import load_sharded, save_sharded
+from ray_tpu_torch.train.sharded_checkpoint import _leaves
+
+cfg = ttf.TransformerConfig.tiny(dtype=torch.float32, max_seq_len=32)
+batch = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/batch.npz").items()}
+
+
+def arrays(state):
+    out = {}
+    for key, leaf in _leaves(state):
+        t = leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+        out[key] = (t.detach().numpy().copy() if isinstance(t, torch.Tensor)
+                    else np.array(t))  # copies: the state changes in place
+    return out
+
+
+mesh22 = tmesh.build_mesh(tmesh.MeshConfig(dp=2, tp=2), "cpu")
+opt = tts.default_optimizer()
+state, sh = tts.make_sharded_state(
+    cfg, opt, 0, params=params_from_numpy(
+        pickle.load(open(f"{work}/init.pkl", "rb")), device="cpu"),
+    mesh=mesh22)
+step = tts.make_train_step(cfg, opt, mesh=mesh22, state_shardings=sh)
+step(state, batch)
+at_save = arrays(state)
+handle = save_sharded(state, f"{work}/port22", step=1)
+step(state, batch)  # the loop goes on while the write runs
+handle.wait(timeout=120)
+placements = {key: [repr(p) for p in leaf.placements]
+              for key, leaf in _leaves(state) if hasattr(leaf, "placements")}
+
+mesh4 = tmesh.build_mesh(tmesh.MeshConfig(dp=4), "cpu")
+opt4 = tts.default_optimizer()
+st4, _ = tts.make_sharded_state(cfg, opt4, 5, mesh=mesh4,
+                                rules=tmesh.FSDP_RULES)
+assert load_sharded(f"{work}/port22", like=st4) is st4
+into_dp4 = arrays(st4)
+
+st22, _ = tts.make_sharded_state(cfg, tts.default_optimizer(), 7,
+                                 mesh=mesh22)
+load_sharded(f"{work}/jax24", like=st22)
+from_jax = arrays(st22)
+if rank == 0:
+    for name, arrs in (("at_save", at_save), ("into_dp4", into_dp4),
+                       ("from_jax", from_jax)):
+        with open(f"{work}/{name}.pkl", "wb") as f:
+            pickle.dump(arrs, f)
+    with open(f"{work}/placements.json", "w") as f:
+        json.dump({"placements": placements}, f)
+with open(f"{work}/coord{rank}.json", "w") as f:
+    json.dump(list(mesh22.get_coordinate()), f)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_checkpoints(tmp_path_factory):
+    work = tmp_path_factory.mktemp("mesh_ckpt")
+    jcfg, _ = _configs()
+    batch = _batch(jcfg.vocab_size, b=4)
+    np.savez(work / "batch.npz", **batch)
+    with open(work / "init.pkl", "wb") as f:
+        pickle.dump(_jax_init_params(), f)
+    mesh = build_mesh(MeshConfig(dp=2, tp=4))
+    opt = jts.default_optimizer()
+    jstate, sh = jts.make_sharded_state(jcfg, mesh, opt, jax.random.key(3))
+    data_sh = jts.batch_sharding(mesh)
+    jb = {k: jax.device_put(jnp.asarray(v), data_sh) for k, v in batch.items()}
+    jstate, _ = jts.make_train_step(jcfg, mesh, opt, sh)(jstate, jb)
+    jck.save_sharded(jstate, str(work / "jax24"), step=1, wait=True)
+    run_ranks(_MESH_SCRIPT, 4, work, timeout=240)
+    loaded = {name: pickle.load(open(work / f"{name}.pkl", "rb"))
+              for name in ("at_save", "into_dp4", "from_jax")}
+    return work, loaded
+
+
+def _assert_bitwise(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        got_k, want_k = np.asarray(got[k]), np.asarray(want[k])
+        assert got_k.dtype == want_k.dtype, k
+        np.testing.assert_array_equal(got_k, want_k, err_msg=k)
+
+
+def test_mesh_save_restores_into_another_mesh(mesh_checkpoints):
+    work, loaded = mesh_checkpoints
+    saved = load_sharded(str(work / "port22"))
+    _assert_bitwise(saved, loaded["at_save"])  # the snapshot at save time
+    _assert_bitwise(loaded["into_dp4"], saved)
+
+
+def test_mesh_save_restores_into_one_process(mesh_checkpoints):
+    work, loaded = mesh_checkpoints
+    state, _, _ = _port_state(seed=9, steps=0)
+    load_sharded(str(work / "port22"), like=state)
+    from ray_tpu_torch.train.sharded_checkpoint import _leaves
+
+    got = {k: (v.detach().numpy() if isinstance(v, torch.Tensor)
+               else np.asarray(v)) for k, v in _leaves(state)}
+    _assert_bitwise(got, loaded["at_save"])
+
+
+def test_mesh_save_restores_into_jax_on_dp2_tp4(mesh_checkpoints):
+    work, loaded = mesh_checkpoints
+    jcfg, _ = _configs()
+    mesh = build_mesh(MeshConfig(dp=2, tp=4))
+    template, _ = jts.make_sharded_state(jcfg, mesh, jts.default_optimizer(),
+                                         jax.random.key(1))
+    jstate = jck.load_sharded(str(work / "port22"), like=template)
+    got = {jax.tree_util.keystr(p): np.asarray(x)
+           for p, x in jax.tree_util.tree_leaves_with_path(jstate)}
+    _assert_bitwise(got, loaded["at_save"])
+    assert jstate.params["embed"].sharding.spec[0] == "tp"
+
+
+def test_jax_dp2_tp4_save_restores_into_the_port_mesh(mesh_checkpoints):
+    work, loaded = mesh_checkpoints
+    _assert_bitwise(loaded["from_jax"], load_sharded(str(work / "jax24")))
+
+
+def test_only_coordinate_zero_replicas_wrote_pieces(mesh_checkpoints):
+    """Each box of every leaf was written once, by the rank at coordinate 0
+    of each mesh axis on which the leaf is replicated; leaves that are not
+    DTensors (step, AdamW's count) by process 0 alone."""
+    work, _ = mesh_checkpoints
+    placements = json.loads((work / "placements.json").read_text())[
+        "placements"]
+    coords = [json.loads((work / f"coord{r}.json").read_text())
+              for r in range(4)]
+    manifest = json.loads((work / "port22" / "manifest.json").read_text())
+    writers = {}
+    for pid in range(4):
+        with open(work / "port22" / f"index_{pid}.1.pkl", "rb") as f:
+            for key, entries in pickle.load(f).items():
+                for box, _fname in entries:
+                    writers.setdefault(key, []).append((pid, tuple(
+                        map(tuple, box))))
+    assert sorted(writers) == sorted(k for k, m in manifest["leaves"].items()
+                                     if not m.get("aux"))
+    for key, pieces in writers.items():
+        boxes = [b for _, b in pieces]
+        assert len(set(boxes)) == len(boxes), (key, pieces)  # once each
+        shape = manifest["leaves"][key]["shape"]
+        assert sum(int(np.prod([b - a for a, b in box])) for box in boxes) \
+            == int(np.prod(shape)), key  # and they tile the leaf
+        pl = placements.get(key)
+        for pid, _ in pieces:
+            if pl is None:
+                assert pid == 0, key
+            else:
+                assert all(c == 0 for p, c in zip(pl, coords[pid])
+                           if p == "Replicate()"), (key, pid, pl)
+    sharded_tp = [k for k, pl in placements.items()
+                  if pl == ["Replicate()", "Shard(dim=0)"]]
+    assert sharded_tp and all(sorted(p for p, _ in writers[k]) == [0, 1]
+                              for k in sharded_tp)
+
+
+def test_a_torn_mesh_save_is_refused(mesh_checkpoints):
+    import shutil
+
+    work, _ = mesh_checkpoints
+    torn = work / "torn"
+    shutil.copytree(work / "port22", torn)
+    os.remove(torn / "COMMIT")
+    with pytest.raises(FileNotFoundError, match="committed"):
+        load_sharded(str(torn))

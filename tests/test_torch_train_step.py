@@ -195,8 +195,11 @@ def test_optimizer_update_matches_optax(norm):
 
 
 def test_more_than_one_device_raises():
+    """A list of devices without ``mesh=`` is refused, and the message
+    names the mesh argument (a state over several devices is laid out on a
+    mesh)."""
     _, tcfg = _configs("float32")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh=build_mesh"):
         tts.make_sharded_state(tcfg, tts.default_optimizer(), 0,
                                device=["cpu", "cpu"])
 
