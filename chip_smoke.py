@@ -7,14 +7,25 @@
     timeout 600 python3 chip_smoke.py train    # the train phase only
     timeout 600 python3 chip_smoke.py inference  # the inference phase only
     timeout 600 python3 chip_smoke.py mesh     # the mesh phase only
+    timeout 700 python3 chip_smoke.py moe      # the moe phase only
+    timeout 450 python3 chip_smoke.py seq      # the seq phase only
+    python3 chip_smoke.py multicard            # four cards; not in the default run
 
-Run from the repo root on a machine with one CUDA card. Ten phases; any
+Run from the repo root on a machine with one CUDA card. Twelve phases; any
 failure raises and the script exits non-zero without a result line. With
 the argument ``kernel`` (or ``decode_kernel``, ``serve_7b``, ``train``,
-``inference``, ``mesh``) it runs the kernel phases (or that phase,
-``decode_kernel`` building its kernel first) alone and prints no result
-line: the first call after a kernel (or that path) changes, under
-``timeout``.
+``inference``, ``mesh``, ``moe``, ``seq``) it runs the kernel phases (or
+that phase, ``decode_kernel`` building its kernel first) alone and prints
+no result line: the first call after a kernel (or that path) changes,
+under ``timeout``. ``multicard`` needs four cards (it raises with fewer):
+it starts four NCCL ranks of this script, one per card
+(``multicard-rank <rank> <world> <port>``), trains ``bench_400m`` at
+[8, 2048] with ring attention over dp 2 x sp 2, Ulysses over sp 2 x tp 2
+and 4 experts over ep 2 x dp 2, 4 steps each (warm-up, capture, two
+replays), each step's loss within ``MESH_LOSS_RTOL`` of the one-card run of
+the same seed and batches (dense attention for ring and Ulysses, the same
+MoE model for the experts), runs ``dryrun_multidevice(4)``, and prints
+replay ms and the device ms in NCCL collectives per layout.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -88,11 +99,28 @@ line: the first call after a kernel (or that path) changes, under
    into a one-device state bit for bit, and that state's into a mesh state.
    Printed: replay ms (CUDA events) and peak memory of the one-device step
    and of each rules table.
-7. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
+7. moe: ``bench_400m`` with 4 experts, top-2, capacity factor 2 (971.6 M
+   parameters) trained as the mesh phase trains ``bench_400m``: 6 steps at
+   [8, 2048] through the pump (steps 3-6 replays), 48 / 24 / 24 flash
+   launches per replay by name, losses finite and falling over the cycle,
+   three eager steps equal to the captured ones bit for bit, the same
+   training over a one-card mesh equal to one device bit for bit; layer 0's
+   ``moe_ffn`` at full width against its one-hot plain version (bf16, one
+   ulp) with the same picks dropped; picks dropped per layer; greedy
+   ``generate`` (8 x 128 prompt, 16 new tokens) through its graphs equal
+   to its bodies run uncaptured. Printed: replay ms, tokens/s, peak
+   memory, device ms by kind of a profiled replay.
+8. seq: over a one-card mesh, ``bench_400m``'s forward with ring and with
+   Ulysses attention against the dense-attention forward (the forward
+   phase's tolerance), ``ulysses_attention(..., attn_impl="flash")`` at
+   [8, 2048, 8, 128] bf16 equal to ``flash_attention`` bit for bit, and 3
+   train steps of each (warm-up, capture, replay): finite losses, replay
+   ms and peak memory.
+9. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
    at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
    bf16 train steps' losses and grad norms, flash against dense (step 1
    held to a tolerance, the rest reported).
-8. inference: bench.py's inference leg (``measure_inference``) on the port:
+10. inference: bench.py's inference leg (``measure_inference``) on the port:
    ``bench_400m`` with dense attention, no remat, bf16, 8 prompts of 1024
    tokens, 64 new tokens, max_len 1089. ``prefill`` (TTFT) and
    ``decode_loop`` (decode tokens/s) timed at the second call of each, the
@@ -105,7 +133,7 @@ line: the first call after a kernel (or that path) changes, under
    TF32 off, the engine's decode program, captured with
    ``RAYTPU_DECODE_DEFERRED_WRITES`` unset and set, gives ``generate``'s
    tokens (the two structures bit for bit alike).
-9. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
+11. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
    greedy requests from client threads through its CUDA graphs (graph
    replays > 0, no decode step run eagerly during the traffic, one decode
    attention launch per layer per decode step); one
@@ -114,7 +142,7 @@ line: the first call after a kernel (or that path) changes, under
    and run eagerly, each profiled; then, in float32 with TF32 off, the
    engine's greedy tokens for 3 interleaved prompts must EQUAL
    ``generate``'s.
-10. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
+12. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
    heads x 128, full width and depth) from ``init_params_int8`` on the card
    (weight bytes and peak memory printed), served through ``LLMEngine``'s
    graphs at bench.py's shape (8 slots, max_len 512, prefill bucket 128,
@@ -139,7 +167,9 @@ Prints one JSON line per phase, the card's name and power limit (as
 nvidia-smi reports them), a ``kernels`` JSON line (five kernels; the int8
 and decode attention kernels' numbers are per serve_7b decode step, with
 the int8 kernel's per-prefill time and the decode attention kernel's per
-inference-leg step beside them), and as its last line
+inference-leg step beside them; the flash kernels' launches per
+``bench_400m`` train step, per mesh step and per ``bench_400m`` x4 experts
+step), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports no JAX and nothing of the JAX package.
 """
@@ -1442,15 +1472,16 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def mesh_train_run(cfg, cycle, mesh=None, rules=None) -> dict:
-    """``MESH_STEPS`` steps of a fresh state of seed ``SEED`` over ``cycle``
+def mesh_train_run(cfg, cycle, mesh=None, rules=None, steps=MESH_STEPS,
+                   kinds=TRAIN_KINDS) -> dict:
+    """``steps`` steps of a fresh state of seed ``SEED`` over ``cycle``
     (through the pump; over ``mesh`` with ``rules`` when given, else on one
     device): step 1 the warm-up, step 2 the capture, then replays. Returns
     the metrics, the replays' ms (CUDA events), the memory the run adds to
     what was allocated before it (the state's bytes, the peak, and the
     peaks above the state during the warm-up and during the capture and
-    replays), one profiled replay's launches by kind, and the state and
-    step."""
+    replays), one profiled replay's device ms and launches by ``kinds``,
+    and the state and step."""
     from ray_tpu_torch.data import device_batches
     from ray_tpu_torch.parallel import (
         batch_sharding,
@@ -1475,7 +1506,7 @@ def mesh_train_run(cfg, cycle, mesh=None, rules=None) -> dict:
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated() - before
     pump = device_batches(
-        lambda: (cycle[i % len(cycle)] for i in range(MESH_STEPS)),
+        lambda: (cycle[i % len(cycle)] for i in range(steps)),
         prefetch_batches=2, sharding=sharding)
     metrics, events = [], []
     for batch in pump:
@@ -1495,7 +1526,7 @@ def mesh_train_run(cfg, cycle, mesh=None, rules=None) -> dict:
             check(all(type(v).__name__ == "DTensor" for v in batch.values()),
                   "the mesh pump yielded tensors that are not DTensors")
     torch.cuda.synchronize()
-    check(step.captures == 1 and step.replays == MESH_STEPS - 1,
+    check(step.captures == 1 and step.replays == steps - 1,
           f"{step.captures} captures, {step.replays} replays")
     captured_peak = torch.cuda.max_memory_allocated()
     peak = max(warm_up_peak, captured_peak) - before
@@ -1504,7 +1535,7 @@ def mesh_train_run(cfg, cycle, mesh=None, rules=None) -> dict:
              "captured": captured_peak - base}
     params = [_full(p).detach().clone() for p in _param_leaves(state)]
     batch = {k: torch.from_numpy(v).cuda() for k, v in cycle[0].items()}
-    prof = device_profile(lambda: step(state, batch), kinds=TRAIN_KINDS)
+    prof = device_profile(lambda: step(state, batch), kinds=kinds)
     del batch
     replay_ms = [a.elapsed_time(e) for a, e in events[2:]]
     return {"metrics": [_metric(m) for m in metrics], "replay_ms": replay_ms,
@@ -1653,6 +1684,492 @@ def phase_mesh(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
                                 for k, v in out["runs"].items()}
     emit(out)
     return out
+
+
+# The moe phase: bench_400m with 4 experts, top-2, capacity factor 2.0 (the
+# reference's MoE settings, tests/test_parallel.py:157 and
+# __graft_entry__.py:231-234, at the flagship's widths: 971.6 M parameters)
+# trained on one card as the train phase trains bench_400m. Kinds of kernel
+# in its step, matched in order on the full name: the flash kernels,
+# cuBLAS's products (the expert products among them), the MoE dispatch and
+# combine (index copies and gathers, and the sort of the gather's backward),
+# the foreach kernels, conversions and copies, other elementwise work.
+MOE_KINDS = {**FLASH_KINDS, "gemm": DECODE_KINDS["gemm"],
+             "scatter_gather": "index|scatter|gather|[Rr]adix|[Ss]ort",
+             "foreach": "multi_tensor_apply",
+             "copy_convert": "copy_kernel|direct_copy",
+             "elementwise": "elementwise_kernel|reduce_kernel"}
+# The index dispatch against the one-hot plain version, one layer at full
+# width in bf16: both sum a token's <= 2 weighted expert rows in fp32 and
+# round to bf16 once, so they may differ by one bf16 ulp (2^-8 relative).
+MOE_LAYER_RTOL, MOE_LAYER_ATOL = 2.0 ** -8, 1e-6
+MOE_GENERATE = (8, 128, 16)  # prompts, prompt length, new tokens
+
+
+def bench_400m_moe():
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    return dataclasses.replace(TransformerConfig.bench_400m(), moe_experts=4,
+                               moe_top_k=2, moe_capacity_factor=2.0)
+
+
+def moe_layer_check(params, cfg, tokens) -> dict:
+    """Layer 0's ``moe_ffn`` on its own input (the normed embedding of
+    ``tokens``) at full width: the index dispatch against the one-hot plain
+    version (``moe_ffn_reference``) under ``MOE_LAYER_RTOL``, the picks each
+    drops, and both timed (CUDA events)."""
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.ops import moe
+
+    lp = tf.layer_params(params, 0)
+    k, cf = cfg.moe_top_k, cfg.moe_capacity_factor
+    with torch.no_grad():
+        h = tf._rms_norm(params["embed"][tokens].to(cfg.dtype),
+                         lp["ln1"]["scale"])
+        args = (h, lp["moe"]["router"], lp["moe"]["wi"], lp["moe"]["wo"])
+        got, aux = moe.moe_ffn(*args, top_k=k, capacity_factor=cf)
+        want, want_aux = moe.moe_ffn_reference(*args, top_k=k,
+                                               capacity_factor=cf)
+        g, n, _ = h.shape
+        cap = moe.capacity(n, cfg.moe_experts, k, cf)
+        dropped = int(moe.route(h, args[1], k, cap).dropped())
+        dispatch_t = moe.one_hot_routing(h, args[1], k, cap)[0]
+        dropped_ref = k * g * n - int(dispatch_t.sum())
+        del dispatch_t
+        err = (got.float() - want.float()).abs()
+        bound = MOE_LAYER_RTOL * want.float().abs() + MOE_LAYER_ATOL
+        over = float((err / bound).max())
+        index_ms = cuda_ms(lambda: moe.moe_ffn(*args, top_k=k,
+                                               capacity_factor=cf), 5)
+        one_hot_ms = cuda_ms(lambda: moe.moe_ffn_reference(
+            *args, top_k=k, capacity_factor=cf), 3)
+        experts_ms = cuda_ms(lambda: moe.experts(
+            torch.zeros((cfg.moe_experts, g, cap, cfg.d_model),
+                        dtype=h.dtype, device=h.device),
+            args[2], args[3], h.dtype), 5)
+    out = {"shape": list(h.shape), "capacity": cap,
+           "max_abs_err": float(err.max()), "max_err_over_bound": over,
+           "bit_equal": bool(torch.equal(got, want)),
+           "aux": aux.item(), "aux_one_hot": want_aux.item(),
+           "dropped": dropped, "dropped_one_hot": dropped_ref,
+           "index_ms": index_ms, "one_hot_ms": one_hot_ms,
+           "expert_products_ms": experts_ms}
+    check(over <= 1.0 and dropped == dropped_ref
+          and abs(aux.item() - want_aux.item()) <= 1e-6 * abs(want_aux.item()),
+          f"moe_ffn at full width differs from its one-hot plain version: "
+          f"{out}")
+    return out
+
+
+def moe_drops_per_layer(params, cfg, tokens) -> list:
+    """Picks past capacity in each layer of an eager forward of ``tokens``
+    (``moe.moe_ffn`` wrapped for the forward to count them)."""
+    from ray_tpu_torch.models.transformer import forward
+    from ray_tpu_torch.ops import moe
+
+    drops = []
+    original = moe.moe_ffn
+
+    def counting(x, router_w, wi, wo, *, top_k, capacity_factor, mesh=None):
+        cap = moe.capacity(x.shape[1], router_w.shape[-1], top_k,
+                           capacity_factor)
+        drops.append(moe.route(x, router_w, top_k, cap).dropped())
+        return original(x, router_w, wi, wo, top_k=top_k,
+                        capacity_factor=capacity_factor, mesh=mesh)
+
+    moe.moe_ffn = counting
+    try:
+        with torch.no_grad():
+            forward(params, tokens, cfg)
+    finally:
+        moe.moe_ffn = original
+    return [int(d) for d in drops]
+
+
+def moe_generate_check(cfg) -> dict:
+    """Greedy ``generate`` of the MoE model (bf16 from a seeded init,
+    ``MOE_GENERATE``) through its captured programs, against the same
+    bodies run uncaptured on the card: the tokens must be equal."""
+    from ray_tpu_torch.models import generation
+    from ray_tpu_torch.models.transformer import init_params
+
+    b, s, new = MOE_GENERATE
+    params, icfg = generation.prepare_for_inference(init_params(cfg, SEED),
+                                                    cfg)
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, icfg.vocab_size, (b, s))).cuda()
+    max_len = s + new
+    t0 = time.perf_counter()
+    captured = generation.generate(params, prompt, icfg, max_new_tokens=new,
+                                   max_len=max_len)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    with torch.no_grad():
+        cache = generation.init_kv_cache(icfg, b, max_len)
+        logits = generation._forward_cached(params, prompt, cache, 0,
+                                            icfg)[0][:, -1]
+        first = torch.argmax(logits, dim=-1)
+        zeros_i = torch.zeros(b, dtype=torch.long, device="cuda")
+        rest = generation.decode_loop_into(
+            params, cache, first.clone(), torch.tensor(s, device="cuda"),
+            torch.zeros(b, device="cuda"), zeros_i, zeros_i.clone(), icfg,
+            torch.zeros((b, new - 1), dtype=torch.long, device="cuda"))
+    uncaptured = torch.cat([first[:, None], rest], dim=1)
+    check(captured.shape == (b, new) and torch.equal(captured, uncaptured),
+          "captured MoE generate differs from the same loop run uncaptured")
+    programs = generation.programs()
+    generation.release_programs()
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"prompts": b, "prompt_len": s, "new_tokens": new,
+            "captured_equals_uncaptured": True,
+            "first_call_s": first_call_s, "programs": programs}
+
+
+def phase_moe(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
+    """``bench_400m`` with 4 experts (``bench_400m_moe``) trained on one
+    card through ``make_train_step``: seeded numpy batches [8, 2048] through
+    ``device_batches``, step 1 the eager warm-up, step 2 the capture, steps
+    3-6 replays (``mesh_train_run``). Checks: one profiled replay launches
+    the flash kernels 48 / 24 / 24 times by name; losses and grad norms
+    finite and the loss falling over the cycle (steps 5 and 6 below steps 1
+    and 2, on the same batches); three eager steps from a state of the same
+    seed equal the captured ones bit for bit; layer 0's ``moe_ffn`` at full
+    width equals the one-hot plain version under ``MOE_LAYER_RTOL`` and
+    drops as many picks; the same training over a one-card mesh (a
+    world-size-1 NCCL group, ``DEFAULT_RULES``) equal to one device bit for
+    bit (losses, grad norms, every parameter after step 6); and greedy
+    ``generate`` through its captured programs equal to the same bodies
+    run uncaptured. Printed: replay ms (CUDA events), tokens/s, peak memory,
+    device ms by kind of a profiled replay, picks dropped per layer."""
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.parallel import (
+        DEFAULT_RULES,
+        MeshConfig,
+        build_mesh,
+        default_optimizer,
+        make_sharded_state,
+        make_train_step,
+    )
+
+    check(cfg.moe_experts == 4 and cfg.attn_impl == "flash" and cfg.remat
+          and cfg.remat_policy == "dots", "bench_400m with 4 experts trains "
+          "with flash attention under remat 'dots'")
+    cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+
+    def on_card(i):
+        return {k: torch.from_numpy(v).cuda() for k, v in cycle[i].items()}
+
+    params = init_params(cfg, SEED)
+    tokens = on_card(0)["tokens"]
+    layer = moe_layer_check(params, cfg, tokens)
+    drops = moe_drops_per_layer(params, cfg, tokens)
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    run = mesh_train_run(cfg, cycle, kinds=MOE_KINDS)
+    check(run["launches"] == want, f"a replay launched flash "
+          f"{run['launches']}, not {want}")
+    losses = [m[0] for m in run["metrics"]]
+    norms = [m[1] for m in run["metrics"]]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses}, {norms}")
+    check(losses[4] < losses[0] and losses[5] < losses[1],
+          f"the loss did not fall over the cycle: {losses}")
+    ref_params = run.pop("params")
+    del run["state"], run["step"]
+    torch.cuda.empty_cache()
+
+    opt_b = default_optimizer()
+    state_b, _ = make_sharded_state(cfg, opt_b, SEED)
+    step_b = make_train_step(cfg, opt_b)
+    eager = [_metric(step_b.eager(state_b, on_card(i))[1]) for i in range(3)]
+    check(eager == run["metrics"][:3], f"eager steps {eager} != captured "
+          f"{run['metrics'][:3]}")
+    del state_b, step_b, opt_b
+    torch.cuda.empty_cache()
+
+    with one_card_process_group():
+        mesh = build_mesh(MeshConfig(dp=1))
+        mrun = mesh_train_run(cfg, cycle, mesh, DEFAULT_RULES,
+                              kinds=MOE_KINDS)
+        differing = tensors_differing(mrun.pop("params"), ref_params)
+        del mrun["state"], mrun["step"], ref_params
+        torch.cuda.empty_cache()
+    check(mrun["launches"] == want, f"mesh: a replay launched flash "
+          f"{mrun['launches']}, not {want}")
+    check(mrun["metrics"] == run["metrics"] and differing == 0,
+          f"the one-card mesh differs from one device: metrics "
+          f"{mrun['metrics']} against {run['metrics']}, {differing} "
+          "parameters differing")
+    gen = moe_generate_check(cfg)
+    mean_ms = float(np.mean(run["replay_ms"]))
+    prof = run["profile"]
+    out = {"phase": "moe", "batch": [b, s], "n_layers": cfg.n_layers,
+           "moe_experts": cfg.moe_experts, "moe_top_k": cfg.moe_top_k,
+           "moe_capacity_factor": cfg.moe_capacity_factor,
+           "param_count": cfg.param_count(), "steps": MESH_STEPS,
+           "losses": losses, "grad_norms": norms,
+           "replay_ms": run["replay_ms"], "replay_ms_mean": mean_ms,
+           "tokens_per_s": b * s / mean_ms * 1e3,
+           "peak_memory_bytes": run["peak_bytes"],
+           "memory_above_state_bytes": run["memory_above_state"],
+           "launches_per_step": dict(zip(FLASH_KINDS, run["launches"])),
+           "profile_device_ms_by_kind": prof["device_ms_by_kind"],
+           "profile_launches_by_kind": prof["launches_by_kind"],
+           "profile_top_kernels_ms": prof["top_kernels_ms"],
+           "profile_busy_share": prof["device_busy_share"],
+           "eager_vs_captured": {"eager": eager, "bit_equal": True},
+           "mesh": {"replay_ms_mean": float(np.mean(mrun["replay_ms"])),
+                    "peak_memory_bytes": mrun["peak_bytes"],
+                    "metrics_bit_equal": True, "params_differing": 0},
+           "dropped_per_layer": drops,
+           "picks_per_layer": cfg.moe_top_k * b * s,
+           "layer0_check": layer, "generate": gen}
+    emit(out)
+    return out
+
+
+# The seq phase: bench_400m over a one-card mesh with ring and Ulysses
+# attention (sp = 1: the mesh has no sp axis, so no hop and no all-to-all
+# runs; the cell exercises the local_map layer and the local attention).
+SEQ_STEPS = 3  # warm-up, capture, one replay
+
+
+def phase_seq(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
+    """Over a one-card mesh (a world-size-1 NCCL group): the forward of
+    ``bench_400m`` with ``attn_impl`` "ring" and "ulysses" against the
+    dense-attention forward on the same parameters (the forward phase's
+    tolerance); ``ulysses_attention(..., attn_impl="flash")`` at
+    ``MAIN_SHAPE`` bf16 equal to ``flash_attention`` bit for bit; and
+    ``SEQ_STEPS`` train steps of each (warm-up, capture, replay) with finite
+    losses. Printed: the logits' differences, replay ms (CUDA events) and
+    peak memory."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from ray_tpu_torch.models.transformer import forward, tree_map
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.ulysses_attention import ulysses_attention
+    from ray_tpu_torch.parallel import (
+        DEFAULT_RULES,
+        MeshConfig,
+        batch_sharding,
+        build_mesh,
+        default_optimizer,
+        make_sharded_state,
+    )
+
+    cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
+    out = {"phase": "seq", "batch": [b, s], "n_layers": cfg.n_layers,
+           "forward": {}, "train": {}}
+    with one_card_process_group():
+        mesh = build_mesh(MeshConfig(dp=1))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        q, k, v = (torch.randn(MAIN_SHAPE, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        whole = [Replicate()]
+        with torch.no_grad():
+            got = ulysses_attention(
+                *(DTensor.from_local(t, mesh, whole) for t in (q, k, v)),
+                mesh=mesh, attn_impl="flash").to_local()
+            check(torch.equal(got, fa.flash_attention(q, k, v)),
+                  "ulysses_attention(flash) differs from flash_attention")
+        out["ulysses_flash_bit_equal_flash"] = True
+        del q, k, v, got
+
+        state, _ = make_sharded_state(cfg, default_optimizer(), SEED,
+                                      mesh=mesh)
+        local = tree_map(lambda p: p.to_local(), state.params)
+        tokens = torch.from_numpy(cycle[0]["tokens"]).cuda()
+        placed = distribute_tensor(tokens, mesh, batch_sharding(mesh)[1],
+                                   src_data_rank=None)
+        with torch.no_grad():
+            dense = forward(local, tokens,
+                            dataclasses.replace(cfg, attn_impl="dense"))
+            for impl in ("ring", "ulysses"):
+                icfg = dataclasses.replace(cfg, attn_impl=impl)
+                logits = forward(state.params, placed, icfg, mesh).to_local()
+                diff = (logits.float() - dense.float()).abs()
+                agree = float((logits.argmax(-1) == dense.argmax(-1))
+                              .float().mean())
+                res = {"logits_max_abs_diff_vs_dense": float(diff.max()),
+                       "logits_mean_abs_diff_vs_dense": float(diff.mean()),
+                       "argmax_agreement_vs_dense": agree,
+                       "forward_ms": cuda_ms(lambda: forward(
+                           state.params, placed, icfg, mesh), 2, 1)}
+                out["forward"][impl] = res
+                # the forward phase's tolerance
+                check(res["logits_mean_abs_diff_vs_dense"] <= 2e-2
+                      and res["logits_max_abs_diff_vs_dense"] <= 0.5
+                      and agree >= 0.95, f"{impl} forward disagrees with "
+                      f"dense: {res}")
+                del logits, diff
+        del state, local, dense
+        torch.cuda.empty_cache()
+        for impl in ("ring", "ulysses"):
+            run = mesh_train_run(dataclasses.replace(cfg, attn_impl=impl),
+                                 cycle, mesh, DEFAULT_RULES, steps=SEQ_STEPS)
+            losses = [m[0] for m in run["metrics"]]
+            check(all(np.isfinite(losses)), f"{impl}: losses {losses}")
+            out["train"][impl] = {
+                "losses": losses, "grad_norms": [m[1] for m in
+                                                 run["metrics"]],
+                "replay_ms": run["replay_ms"],
+                "peak_memory_bytes": run["peak_bytes"],
+                "profile_device_ms_by_kind":
+                    run["profile"]["device_ms_by_kind"]}
+            del run
+            torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# multicard: bench_400m over four cards (NCCL, one process per card, spawned
+# by this script) in three layouts, each against the one-card run of the same
+# seed and batches (dense attention for ring and Ulysses, whose math it is;
+# the same MoE model for the expert layout), losses within MESH_LOSS_RTOL per
+# step; then dryrun_multidevice(4). Kinds of kernel in a replay: NCCL's
+# collectives first, then the train step's kinds.
+MULTICARD_WORLD = 4
+MULTICARD_STEPS = 4  # warm-up, capture, two replays
+MULTICARD_KINDS = {"nccl": "nccl", **MOE_KINDS}
+MULTICARD_LAYOUTS = {
+    "ring_dp2_sp2": ({"dp": 2, "sp": 2}, {"attn_impl": "ring"}),
+    "ulysses_sp2_tp2": ({"sp": 2, "tp": 2}, {"attn_impl": "ulysses"}),
+    "moe_ep2_dp2": ({"dp": 2, "ep": 2}, {"moe_experts": 4, "moe_top_k": 2,
+                                          "moe_capacity_factor": 2.0}),
+}
+MULTICARD_TIMEOUT_S = 900
+
+
+def multicard_rank(rank: int, world: int, port: str) -> None:
+    """One rank of ``multicard`` (card ``rank``): the one-card runs, then
+    each layout over the four cards, then the dry run; rank 0 prints the
+    result line."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.parallel import DEFAULT_RULES, MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.dryrun import dryrun_multidevice
+
+    # a rank still waiting shortly before the launcher's deadline shows
+    # where (every thread's stack), and exits
+    faulthandler.dump_traceback_later(MULTICARD_TIMEOUT_S - 30, exit=True)
+
+    def stage(what):
+        print(f"multicard rank {rank}: {what} "
+              f"({time.strftime('%H:%M:%S')})", flush=True)
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        base = TransformerConfig.bench_400m()
+        b, s = MAIN_SHAPE[0], MAIN_SHAPE[1]
+        cycle = numpy_train_batches(base.vocab_size, b, s, TRAIN_CYCLE,
+                                    SEED + 2)
+        one_card = {}
+        for name in ("dense", "moe"):
+            kw = MULTICARD_LAYOUTS["moe_ep2_dp2"][1] if name == "moe" else {
+                "attn_impl": "dense"}
+            stage(f"one-card run, {name}")
+            run = mesh_train_run(dataclasses.replace(base, **kw), cycle,
+                                 steps=MULTICARD_STEPS)
+            one_card[name] = {"metrics": run["metrics"],
+                              "replay_ms": run["replay_ms"]}
+            del run
+            torch.cuda.empty_cache()
+        out = {"phase": "multicard", "world": world, "batch": [b, s],
+               "layouts": {}}
+        for name, (sizes, kw) in MULTICARD_LAYOUTS.items():
+            stage(f"layout {name}")
+            cfg = dataclasses.replace(base, **kw)
+            mesh = build_mesh(MeshConfig(**sizes))
+            run = mesh_train_run(cfg, cycle, mesh, DEFAULT_RULES,
+                                 steps=MULTICARD_STEPS, kinds=MULTICARD_KINDS)
+            ref = one_card["moe" if cfg.moe_experts else "dense"]
+            rel = [abs(g[0] - r[0]) / abs(r[0])
+                   for g, r in zip(run["metrics"], ref["metrics"])]
+            prof = run["profile"]
+            out["layouts"][name] = {
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "losses": [m[0] for m in run["metrics"]],
+                "one_card_losses": [m[0] for m in ref["metrics"]],
+                "loss_rel_diff": rel,
+                "replay_ms": run["replay_ms"],
+                "one_card_replay_ms": ref["replay_ms"],
+                "peak_memory_bytes": run["peak_bytes"],
+                "device_ms_by_kind": prof["device_ms_by_kind"],
+                "launches_by_kind": prof["launches_by_kind"],
+                "collective_ms": prof["device_ms_by_kind"]["nccl"],
+                "busy_share": prof["device_busy_share"]}
+            check(all(np.isfinite(m[0]) for m in run["metrics"])
+                  and max(rel) <= MESH_LOSS_RTOL,
+                  f"{name}: losses {run['metrics']} against one card "
+                  f"{ref['metrics']}")
+            del run
+            torch.cuda.empty_cache()
+        stage("dryrun_multidevice")
+        out["dryrun"] = dryrun_multidevice(world)
+        if rank == 0:
+            emit(out)
+    finally:
+        dist.destroy_process_group()
+        faulthandler.cancel_dump_traceback_later()
+
+
+def phase_multicard() -> None:
+    """Spawns ``multicard_rank`` in ``MULTICARD_WORLD`` processes (this
+    script, one per card) and waits for them, at most
+    ``MULTICARD_TIMEOUT_S``; when a rank fails the others are killed, and
+    every rank's output is printed. Needs four cards."""
+    import shutil
+    import socket
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < MULTICARD_WORLD:
+        raise RuntimeError(f"multicard needs {MULTICARD_WORLD} CUDA cards; "
+                           f"{n} visible")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_multicard_"))
+    logs = [open(work / f"rank{r}.log", "w+") for r in range(MULTICARD_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "multicard-rank",
+         str(r), str(MULTICARD_WORLD), port], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(MULTICARD_WORLD)]
+    deadline = time.monotonic() + MULTICARD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs if p.returncode is not None):
+                break  # a rank failed: its peers would wait for it
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * MULTICARD_WORLD:
+        for r, (c, o) in enumerate(zip(codes, outs)):
+            print(f"--- multicard rank {r} (exit {c}) ---\n{o[-8000:]}",
+                  flush=True)
+        raise RuntimeError(f"multicard ranks exited {codes}")
+    print(outs[0], end="", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 # Flash against dense attention through the whole model:
@@ -2459,10 +2976,15 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
+    if len(argv) == 4 and argv[0] == "multicard-rank":
+        multicard_rank(int(argv[1]), int(argv[2]), argv[3])
+        return 0
     if argv not in ([], ["kernel"], ["decode_kernel"], ["serve_7b"],
-                    ["train"], ["inference"], ["mesh"]):
+                    ["train"], ["inference"], ["mesh"], ["moe"], ["seq"],
+                    ["multicard"]):
         print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
-              "train | inference | mesh]", file=sys.stderr)
+              "train | inference | mesh | moe | seq | multicard]",
+              file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
@@ -2494,6 +3016,18 @@ def main(argv) -> int:
         phase_mesh(TransformerConfig.bench_400m())
         print(smi, flush=True)
         return 0
+    if argv == ["moe"]:
+        phase_moe(bench_400m_moe())
+        print(smi, flush=True)
+        return 0
+    if argv == ["seq"]:
+        phase_seq(TransformerConfig.bench_400m())
+        print(smi, flush=True)
+        return 0
+    if argv == ["multicard"]:
+        phase_multicard()
+        print(smi, flush=True)
+        return 0
     kernel = phase_kernel()
     int8 = phase_int8_kernel()
     dec = phase_decode_kernel()
@@ -2505,6 +3039,8 @@ def main(argv) -> int:
     phase_forward(params, cfg)
     train = phase_train(cfg)
     mesh = phase_mesh(cfg)
+    moe_run = phase_moe(bench_400m_moe())
+    phase_seq(cfg)
     phase_grad(cfg)
     inference = phase_inference(cfg)
     phase_serve(params, cfg)
@@ -2517,6 +3053,7 @@ def main(argv) -> int:
     # per replayed step over the one-card mesh (DEFAULT_RULES; FSDP_RULES
     # checked equal in the mesh phase)
     per_mesh_step = mesh["runs"]["DEFAULT_RULES"]["launches_per_step"]
+    per_moe_step = moe_run["launches_per_step"]  # bench_400m x4 experts
     int8_step = int8["decode_step"]
     dec7, dec_inf = (dec["times"]["serve_7b_step"],
                      dec["times"]["inference_step"])
@@ -2527,6 +3064,7 @@ def main(argv) -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:72",
          "launches": per_step["flash_fwd"],
          "launches_per_mesh_step": per_mesh_step["flash_fwd"],
+         "launches_per_moe_step": per_moe_step["flash_fwd"],
          "wrapper_count_in_train_run": wrappers["flash_fwd"],
          "max_abs_err": kernel["cases"][0]["max_abs_err"],
          "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
@@ -2538,6 +3076,7 @@ def main(argv) -> int:
          "fuses": "delta = rowsum(dO*O), ray_tpu/ops/flash_attention.py:247",
          "launches": per_step["flash_bwd_dq"],
          "launches_per_mesh_step": per_mesh_step["flash_bwd_dq"],
+         "launches_per_moe_step": per_moe_step["flash_bwd_dq"],
          "wrapper_count_in_train_run": wrappers["flash_bwd_dq"],
          "max_abs_err": main_bwd["dq_max_abs_err"],
          "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_dq_plain_ms"],
@@ -2549,6 +3088,7 @@ def main(argv) -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:197",
          "launches": per_step["flash_bwd_dkv"],
          "launches_per_mesh_step": per_mesh_step["flash_bwd_dkv"],
+         "launches_per_moe_step": per_moe_step["flash_bwd_dkv"],
          "wrapper_count_in_train_run": wrappers["flash_bwd_dkv"],
          "max_abs_err": max(main_bwd["dk_max_abs_err"],
                             main_bwd["dv_max_abs_err"]),

@@ -7,28 +7,36 @@ model is plain functions on tensors over that tree:
 
 - a Python loop over the stacked L axis in place of ``lax.scan``;
 - the GPT-J parallel block, rotary embeddings, RMSNorm, optional GQA;
-- attention pluggable: ``dense`` (``ops/attention.py``) or ``flash`` (the
+- attention pluggable: ``dense`` (``ops/attention.py``), ``flash`` (the
   hand-written CUDA kernels of ``ops/flash_attention.py``, forward and
-  backward);
+  backward), and over a mesh with the sequence split over sp, ``ring``
+  (``ops/ring_attention.py``) or ``ulysses`` (``ops/ulysses_attention.py``,
+  dense per rank, as the reference's model runs it);
+- an optional mixture-of-experts FFN (``moe_experts`` > 0,
+  ``ops/moe.py``), whose Switch aux loss ``loss_fn`` adds;
 - ``remat_wrap``: each layer under ``torch.utils.checkpoint`` with the
   reference's policies ("full", "dots", "dots_attn").
 
-Gradients flow through ``forward`` and ``loss_fn`` by autograd. The
-ring/ulysses attentions and the MoE FFN are not ported yet.
+Gradients flow through ``forward`` and ``loss_fn`` by autograd.
 
 Under a mesh (``parallel/mesh.py``) the same functions run over DTensors:
 the parameters carry the placements of ``param_logical_axes`` and the batch
 is split over the batch axes, and DTensor's sharding propagation places
-every op, as GSPMD places the reference's. Three things differ from the
+every op, as GSPMD places the reference's. Four things differ from the
 one-device path: the embedding is gathered per shard, vocab-parallel
 (``_embedding``; DTensor's own rule for ``F.embedding`` gives a masked
 partial sum whose backward torch 2.11 cannot redistribute), the rotary
 tables are replicated DTensors (DTensor refuses plain tensors beside
-DTensors), and the loss's log-softmax and target gather run per shard
-(over DTensors, gather's backward would copy the [B, S, V] fp32 zeros).
+DTensors), the loss's log-softmax and target gather run per shard
+(over DTensors, gather's backward would copy the [B, S, V] fp32 zeros), and
+so do the weight products (``_product_per_shard``: over DTensors an einsum
+flattens the token dims, which torch 2.11 refuses with the sequence split).
 Attention runs per shard (``flash_attention_sharded``, or the dense
-attention through ``attention_per_shard``). A mesh with pp > 1 raises: the
-layer stack split over pp needs the pipeline, which is not ported.
+attention through ``attention_per_shard``; ring and Ulysses keep the
+sequence split over sp, and each shard's rotary tables are its own global
+positions' slice of the replicated ones), and so does the MoE FFN, with its
+expert all-to-alls over ep. A mesh with pp > 1 raises: the layer stack split
+over pp needs the pipeline, which is not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -63,7 +72,8 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
-    attn_impl: str = "dense"  # dense | flash (ring | ulysses not ported yet)
+    attn_impl: str = "dense"  # dense | ring | ulysses | flash
+    # Mixture-of-experts FFN (0 = dense MLP); experts lie over the ep axis.
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -338,10 +348,18 @@ def _like(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def select_attn_fn(config: TransformerConfig, mesh=None):
     c = config
-    if c.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={c.attn_impl!r} is not ported yet"
-        )
+    if c.attn_impl == "ring":
+        if mesh is None:
+            raise ValueError("ring attention needs a mesh")
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+
+        return functools.partial(ring_attention, mesh=mesh)
+    if c.attn_impl == "ulysses":
+        if mesh is None:
+            raise ValueError("ulysses attention needs a mesh")
+        from ray_tpu_torch.ops.ulysses_attention import ulysses_attention
+
+        return functools.partial(ulysses_attention, mesh=mesh)
     if c.attn_impl == "flash":
         from ray_tpu_torch.ops.flash_attention import (
             flash_attention,
@@ -367,10 +385,48 @@ def _weight_product(spec: str, x: torch.Tensor, w, dtype,
     w's first. A tensor weight is cast to the compute dtype and goes
     through ``einsum`` (training, autograd and remat see exactly that); an
     int8 ``QTensor`` (``models/quant.py``) goes through its kernel product,
-    ``QTensor.matmul``."""
+    ``QTensor.matmul``. Over a mesh the einsum runs per shard
+    (``_product_per_shard``)."""
+    if isinstance(x, DTensor):
+        return _product_per_shard(spec, x, w, dtype, contract)
     if isinstance(w, torch.Tensor):
         return torch.einsum(spec, x, w.to(dtype))
     return w.matmul(x, contract)
+
+
+def _product_per_shard(spec: str, x, w, dtype, contract: int):
+    """``einsum(spec, x, w)`` of DTensors on each rank's shard, through
+    ``local_map``. Over DTensors the einsum flattens x's token dims into
+    one, which torch 2.11 refuses when the sequence dim is split (over sp);
+    per shard nothing is flattened across ranks. Mesh axis by mesh axis:
+    where x's token dims are split, w is gathered and the output is split
+    alike (w's gradient a partial sum); where w splits a contracted dim (tp
+    over heads or F), x is split alike and the output is a partial sum;
+    where w splits an output dim, x is whole and x's gradient a partial
+    sum; elsewhere everything is whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    n_tok = x.ndim - contract
+    xs, ws, outs, x_grads, w_grads = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim < n_tok:
+            row = (xp, Replicate(), xp, xp, Partial())
+        elif isinstance(wp, Shard) and wp.dim < contract:
+            split = Shard(n_tok + wp.dim)
+            row = (split, wp, Partial(), split, wp)
+        elif isinstance(wp, Shard):
+            row = (Replicate(), wp, Shard(wp.dim - contract + n_tok),
+                   Partial(), wp)
+        else:
+            row = (Replicate(),) * 5
+        for acc, placement in zip((xs, ws, outs, x_grads, w_grads), row):
+            acc.append(placement)
+    return local_map(
+        lambda xl, wl: torch.einsum(spec, xl, wl.to(dtype)),
+        out_placements=(tuple(outs),),
+        in_placements=(tuple(xs), tuple(ws)),
+        in_grad_placements=(tuple(x_grads), tuple(w_grads)),
+        device_mesh=x.device_mesh, redistribute_inputs=True)(x, w)
 
 
 def apply_layer(
@@ -379,15 +435,16 @@ def apply_layer(
     config: TransformerConfig,
     positions: torch.Tensor,
     attn_fn,
+    mesh=None,
 ):
     """GPT-J parallel block: y = x + attn(ln(x)) + ffn(ln(x)).
 
     Shared by the forward below and the KV-cached generation path
     (models/generation.py). ``attn_fn(q, k, v)`` returns the attention
-    output [B, S, H, D]. Returns (y, aux_loss)."""
+    output [B, S, H, D]. The FFN is the MoE FFN (``ops/moe.py``, over
+    ``mesh`` when given) when ``moe_experts`` is set, else the dense MLP.
+    Returns (y, aux_loss): the MoE's Switch aux, or 0."""
     c = config
-    if c.moe_experts:
-        raise NotImplementedError("the MoE FFN is not ported yet")
     h = _rms_norm(x, lp["ln1"]["scale"])
     q = _weight_product("bsd,dhk->bshk", h, lp["attn"]["wq"], c.dtype)
     k = _weight_product("bsd,dhk->bshk", h, lp["attn"]["wk"], c.dtype)
@@ -399,6 +456,13 @@ def apply_layer(
         attn_out = checkpoint_name(attn_out, "attn_out")
     a = _weight_product("bshk,hkd->bsd", attn_out, lp["attn"]["wo"],
                         c.dtype, contract=2)
+    if c.moe_experts:
+        from ray_tpu_torch.ops.moe import moe_ffn
+
+        m, aux = moe_ffn(h, lp["moe"]["router"], lp["moe"]["wi"],
+                         lp["moe"]["wo"], top_k=c.moe_top_k,
+                         capacity_factor=c.moe_capacity_factor, mesh=mesh)
+        return x + a + m, aux
     m = _weight_product("bsd,df->bsf", h, lp["mlp"]["wi"], c.dtype)
     m = F.gelu(m, approximate="tanh")  # jax.nn.gelu's default
     m = _weight_product("bsf,fd->bsd", m, lp["mlp"]["wo"], c.dtype)
@@ -489,7 +553,7 @@ def lm_head(params: Dict, x: torch.Tensor, config: TransformerConfig):
     x = _rms_norm(x, params["final_ln"]["scale"])
     head = (params["embed"].T if config.tie_embeddings
             else params["lm_head"])
-    return x @ head.to(config.dtype)
+    return _weight_product("...d,dv->...v", x, head, config.dtype)
 
 
 def forward(
@@ -516,12 +580,12 @@ def forward(
         x = _embedding(params["embed"], tokens, mesh).to(c.dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     attn_fn = select_attn_fn(c, mesh)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = remat_wrap(
-        lambda x, lp: apply_layer(x, lp, c, positions, attn_fn), c)
+        lambda x, lp: apply_layer(x, lp, c, positions, attn_fn, mesh), c)
+    aux = None  # a DTensor over a mesh with MoE: no plain zeros beside it
     for lp in unbind_layers(params, c.n_layers):
         x, a = layer(x, lp)
-        aux = aux + a
+        aux = a if aux is None else aux + a
     logits = lm_head(params, x, c)
     return (logits, aux) if return_aux else logits
 

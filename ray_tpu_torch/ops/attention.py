@@ -96,12 +96,15 @@ def blockwise_finalize(acc: torch.Tensor, l: torch.Tensor,
 
 def attention_per_shard(fn: Callable, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, *, mesh, dp_axis=("dp", "ep"),
-                        tp_axis: str = "tp") -> torch.Tensor:
+                        tp_axis: str = "tp",
+                        seq_axis=None) -> torch.Tensor:
     """``fn(q, k, v)`` on each rank's [B/dp, S, H/tp, D] shard of the
     DTensors q, k, v on ``mesh``, through ``local_map``: batch over
-    ``dp_axis``, heads over ``tp_axis``, the sequence whole (inputs that lie
-    otherwise are redistributed first, as ``shard_map`` reshards). The
-    output is a DTensor of that layout. The kv heads must divide over tp."""
+    ``dp_axis``, heads over ``tp_axis``, the sequence whole, or split over
+    ``seq_axis`` when given (for an attention whose ``fn`` talks to the
+    other sequence shards); inputs that lie otherwise are redistributed
+    first, as ``shard_map`` reshards. The output is a DTensor of that
+    layout. The kv heads must divide over tp."""
     from torch.distributed.tensor.experimental import local_map
 
     from ray_tpu_torch.parallel.mesh import (
@@ -117,8 +120,9 @@ def attention_per_shard(fn: Callable, q: torch.Tensor, k: torch.Tensor,
             "attention to run per shard; use more kv heads or a smaller tp "
             "axis"
         )
-    rules = AxisRules((("batch", dp_axis), ("heads", tp_axis)))
-    spec = logical_to_placements(mesh, rules, ("batch", None, "heads", None))
+    rules = AxisRules((("batch", dp_axis), ("seq", seq_axis),
+                       ("heads", tp_axis)))
+    spec = logical_to_placements(mesh, rules, ("batch", "seq", "heads", None))
     return local_map(fn, out_placements=(spec,),
                      in_placements=(spec, spec, spec), device_mesh=mesh,
                      redistribute_inputs=True)(q, k, v)

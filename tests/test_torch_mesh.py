@@ -360,9 +360,15 @@ def test_sharded_pump_yields_each_ranks_box(four_ranks):
 def test_dryrun_multidevice_on_four_cpu_ranks(four_ranks):
     _, results, outs = four_ranks
     assert "dryrun_multidevice ok: mesh=" in outs[0]
+    assert "dryrun_multidevice ok (moe/ep): mesh=" in outs[0]
     for r in results:
         dry = r["dryrun"]
-        assert dry["mesh"] == {"dp": 2, "pp": 1, "ep": 1, "sp": 1, "tp": 2}
+        # part 1: ring attention over sp = 2; part 3: 4 experts over ep = 2
+        assert dry["mesh"] == {"dp": 1, "pp": 1, "ep": 1, "sp": 2, "tp": 2}
+        assert dry["moe"]["mesh"] == {"dp": 1, "pp": 1, "ep": 2, "sp": 1,
+                                      "tp": 2}
+        for part in (dry, dry["moe"]):
+            assert all(np.isfinite(part["losses"]))
+            assert part["losses"][-1] < part["losses"][0]
         assert dry["losses"] == results[0]["dryrun"]["losses"]
-        assert all(np.isfinite(dry["losses"]))
-        assert dry["losses"][-1] < dry["losses"][0]
+        assert dry["moe"]["losses"] == results[0]["dryrun"]["moe"]["losses"]

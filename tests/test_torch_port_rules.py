@@ -53,7 +53,10 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.ops.int8_matmul",
             "ray_tpu_torch.ops.decode_attention",
             "ray_tpu_torch.data.iterator",
-            "ray_tpu_torch.train.sharded_checkpoint"} <= set(mods)
+            "ray_tpu_torch.train.sharded_checkpoint",
+            "ray_tpu_torch.ops.moe",
+            "ray_tpu_torch.ops.ring_attention",
+            "ray_tpu_torch.ops.ulysses_attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -75,7 +78,10 @@ def test_the_scan_covers_every_kernel_module():
             "ray_tpu_torch/ops/flash_attention.py",
             "ray_tpu_torch/ops/decode_attention.py",
             "ray_tpu_torch/data/iterator.py",
-            "ray_tpu_torch/train/sharded_checkpoint.py"} <= names
+            "ray_tpu_torch/train/sharded_checkpoint.py",
+            "ray_tpu_torch/ops/moe.py",
+            "ray_tpu_torch/ops/ring_attention.py",
+            "ray_tpu_torch/ops/ulysses_attention.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

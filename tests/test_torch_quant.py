@@ -130,8 +130,8 @@ def test_qtensor_rejects_other_slicing():
 @pytest.mark.parametrize("moe_experts", [0, 4], ids=["dense", "moe"])
 def test_quantize_layer_params_matches_jax(moe_experts):
     """Every layer leaf as JAX's ``quantize_layer_params`` leaves it: the
-    axis rules' weights quantized bit-identically (the MoE wi/wo too, though
-    the port's MoE forward is not ported), norms and router untouched."""
+    axis rules' weights quantized bit-identically (the MoE wi/wo too, which
+    the MoE FFN dequantizes through ``.to``), norms and router untouched."""
     jcfg = jtf.TransformerConfig.tiny(moe_experts=moe_experts)
     layers = jax.tree.map(np.asarray,
                           jtf.init_params(jcfg, jax.random.key(3))["layers"])

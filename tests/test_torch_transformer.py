@@ -19,6 +19,7 @@ from ray_tpu.models import generation as jgen
 from ray_tpu.models import transformer as jtf
 from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.ops.attention import causal_attention
 
 ATOL = 1e-4
 
@@ -147,16 +148,33 @@ def test_bf16_params_cross_bit_exact():
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_unported_attention_raises(impl):
+    """Ring and Ulysses attention are ported (tests/test_torch_ring_
+    attention.py, tests/test_torch_ulysses_attention.py); as in the
+    reference, each needs a mesh and refuses to run without one."""
     _, tcfg = _configs(attn_impl=impl)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match=f"{impl} attention needs a mesh"):
         ttf.select_attn_fn(tcfg)
 
 
+class _ExpertMesh:
+    """Stands for a mesh with ep = 2: the MoE FFN's checks run before any
+    collective."""
+
+    mesh_dim_names = ("ep",)
+
+    def size(self, i):
+        return 2
+
+
 def test_moe_layer_raises():
-    _, tcfg = _configs(moe_experts=4)
+    """The MoE FFN is ported (tests/test_torch_moe.py); a layer whose
+    experts do not divide over the mesh's ep axis refuses to run."""
+    _, tcfg = _configs(moe_experts=3)
     tp = ttf.init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttf.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg)
+    x = torch.zeros((2, 4, tcfg.d_model))
+    with pytest.raises(ValueError, match="3 experts do not divide over ep=2"):
+        ttf.apply_layer(x, ttf.layer_params(tp, 0), tcfg, torch.arange(4),
+                        causal_attention, mesh=_ExpertMesh())
 
 
 def _grad_batch(vocab, seed=5, b=2, s=32):
