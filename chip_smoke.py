@@ -9,23 +9,27 @@
     timeout 600 python3 chip_smoke.py mesh     # the mesh phase only
     timeout 700 python3 chip_smoke.py moe      # the moe phase only
     timeout 450 python3 chip_smoke.py seq      # the seq phase only
+    timeout 450 python3 chip_smoke.py pipe     # the pipe phase only
     python3 chip_smoke.py multicard            # four cards; not in the default run
 
-Run from the repo root on a machine with one CUDA card. Twelve phases; any
+Run from the repo root on a machine with one CUDA card. Thirteen phases; any
 failure raises and the script exits non-zero without a result line. With
 the argument ``kernel`` (or ``decode_kernel``, ``serve_7b``, ``train``,
-``inference``, ``mesh``, ``moe``, ``seq``) it runs the kernel phases (or
-that phase, ``decode_kernel`` building its kernel first) alone and prints
-no result line: the first call after a kernel (or that path) changes,
-under ``timeout``. ``multicard`` needs four cards (it raises with fewer):
-it starts four NCCL ranks of this script, one per card
+``inference``, ``mesh``, ``moe``, ``seq``, ``pipe``) it runs the kernel
+phases (or that phase, ``decode_kernel`` building its kernel first) alone
+and prints no result line: the first call after a kernel (or that path)
+changes, under ``timeout``. ``multicard`` needs four cards (it raises with
+fewer): it starts four NCCL ranks of this script, one per card
 (``multicard-rank <rank> <world> <port>``), trains ``bench_400m`` at
-[8, 2048] with ring attention over dp 2 x sp 2, Ulysses over sp 2 x tp 2
-and 4 experts over ep 2 x dp 2, 4 steps each (warm-up, capture, two
-replays), each step's loss within ``MESH_LOSS_RTOL`` of the one-card run of
-the same seed and batches (dense attention for ring and Ulysses, the same
-MoE model for the experts), runs ``dryrun_multidevice(4)``, and prints
-replay ms and the device ms in NCCL collectives per layout.
+[8, 2048] with ring attention over dp 2 x sp 2, Ulysses over sp 2 x tp 2,
+4 experts over ep 2 x dp 2, and, with dense attention, as a pipeline: 1F1B
+over pp 4 (8 microbatches), GPipe over dp 2 x pp 2 (4) and 1F1B over pp 2 x
+tp 2 (4); 4 steps each (warm-up, capture, two replays), each step's loss
+within ``MESH_LOSS_RTOL`` of the one-card run of the same seed and batches
+(dense attention for ring, Ulysses and the pipelines, the same MoE model
+for the experts), runs ``dryrun_multidevice(4)`` (parts 1, 2, 2c and 3),
+and prints replay ms, the device ms in NCCL collectives and the peak memory
+per layout.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -116,11 +120,22 @@ replay ms and the device ms in NCCL collectives per layout.
    [8, 2048, 8, 128] bf16 equal to ``flash_attention`` bit for bit, and 3
    train steps of each (warm-up, capture, replay): finite losses, replay
    ms and peak memory.
-9. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
+9. pipe: ``bench_400m`` with dense attention (the pipeline's stages run
+   dense attention) through ``make_pipeline_train_step`` over a one-card
+   mesh, 8 microbatches of one row, under GPipe and under 1F1B: 6 steps
+   each through the pump (warm-up, capture, replays). At pp = 1 the
+   schedule, its ring buffer and the scoring run, but no hop. Checks: no
+   flash kernel in a profiled replay; the first loss within
+   ``MESH_LOSS_RTOL`` of the non-pipelined dense loss on the same weights
+   and batch; three eager steps from a fresh state equal the captured ones
+   bit for bit; 1F1B's peak memory during an eager step at most 1.05 times
+   GPipe's. Printed: replay ms, tokens/s, MFU, peaks, device ms and
+   launches by kind.
+10. grad: the flash grads of ``loss_fn`` against the dense-attention grads,
    at the 400M width with 2 layers in fp32 (TF32 off), and the full-depth
    bf16 train steps' losses and grad norms, flash against dense (step 1
    held to a tolerance, the rest reported).
-10. inference: bench.py's inference leg (``measure_inference``) on the port:
+11. inference: bench.py's inference leg (``measure_inference``) on the port:
    ``bench_400m`` with dense attention, no remat, bf16, 8 prompts of 1024
    tokens, 64 new tokens, max_len 1089. ``prefill`` (TTFT) and
    ``decode_loop`` (decode tokens/s) timed at the second call of each, the
@@ -133,7 +148,7 @@ replay ms and the device ms in NCCL collectives per layout.
    TF32 off, the engine's decode program, captured with
    ``RAYTPU_DECODE_DEFERRED_WRITES`` unset and set, gives ``generate``'s
    tokens (the two structures bit for bit alike).
-11. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
+12. serve: ``LLMEngine`` over ``bench_400m`` in bf16 answers 8 concurrent
    greedy requests from client threads through its CUDA graphs (graph
    replays > 0, no decode step run eagerly during the traffic, one decode
    attention launch per layer per decode step); one
@@ -142,7 +157,7 @@ replay ms and the device ms in NCCL collectives per layout.
    and run eagerly, each profiled; then, in float32 with TF32 off, the
    engine's greedy tokens for 3 interleaved prompts must EQUAL
    ``generate``'s.
-12. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
+13. serve_7b: ``serve_7b`` (6.7B parameters, 32 layers, d_model 4096, 32
    heads x 128, full width and depth) from ``init_params_int8`` on the card
    (weight bytes and peak memory printed), served through ``LLMEngine``'s
    graphs at bench.py's shape (8 slots, max_len 512, prefill bucket 128,
@@ -1473,10 +1488,12 @@ def _full(t):
 
 
 def mesh_train_run(cfg, cycle, mesh=None, rules=None, steps=MESH_STEPS,
-                   kinds=TRAIN_KINDS) -> dict:
+                   kinds=TRAIN_KINDS, pipeline=None) -> dict:
     """``steps`` steps of a fresh state of seed ``SEED`` over ``cycle``
     (through the pump; over ``mesh`` with ``rules`` when given, else on one
-    device): step 1 the warm-up, step 2 the capture, then replays. Returns
+    device; as a pipeline when ``pipeline`` = (schedule, microbatches)
+    gives one, ``make_pipeline_train_step``): step 1 the warm-up, step 2 the
+    capture, then replays. Returns
     the metrics, the replays' ms (CUDA events), the memory the run adds to
     what was allocated before it (the state's bytes, the peak, and the
     peaks above the state during the warm-up and during the capture and
@@ -1486,6 +1503,7 @@ def mesh_train_run(cfg, cycle, mesh=None, rules=None, steps=MESH_STEPS,
     from ray_tpu_torch.parallel import (
         batch_sharding,
         default_optimizer,
+        make_pipeline_train_step,
         make_sharded_state,
         make_train_step,
     )
@@ -1500,8 +1518,13 @@ def mesh_train_run(cfg, cycle, mesh=None, rules=None, steps=MESH_STEPS,
         sharding = None
     else:
         state, sh = make_sharded_state(cfg, opt, SEED, mesh=mesh, rules=rules)
-        step = make_train_step(cfg, opt, mesh=mesh, state_shardings=sh,
-                               rules=rules)
+        if pipeline is None:
+            step = make_train_step(cfg, opt, mesh=mesh, state_shardings=sh,
+                                   rules=rules)
+        else:
+            step = make_pipeline_train_step(
+                cfg, opt, pipeline[1], mesh=mesh, state_shardings=sh,
+                rules=rules, schedule=pipeline[0])
         sharding = batch_sharding(mesh, rules)
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated() - before
@@ -1704,6 +1727,15 @@ MOE_KINDS = {**FLASH_KINDS, "gemm": DECODE_KINDS["gemm"],
 # round to bf16 once, so they may differ by one bf16 ulp (2^-8 relative).
 MOE_LAYER_RTOL, MOE_LAYER_ATOL = 2.0 ** -8, 1e-6
 MOE_GENERATE = (8, 128, 16)  # prompts, prompt length, new tokens
+
+
+def bench_400m_dense():
+    """``bench_400m`` with dense attention, as the pipeline's stages run
+    it (``parallel/pipeline.py``); otherwise the flagship's settings."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    return dataclasses.replace(TransformerConfig.bench_400m(),
+                               attn_impl="dense")
 
 
 def bench_400m_moe():
@@ -2025,20 +2057,151 @@ def phase_seq(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
     return out
 
 
+# The pipe phase: bench_400m with dense attention (the pipeline's stages run
+# dense attention, as the reference's) trained as a pipeline over a one-card
+# mesh (world size 1) under GPipe and 1F1B. At pp = 1 the schedule, its ring
+# buffer and the scoring run, but no hop and no collective over pp does.
+# 1F1B's peak activation memory may be at most PIPE_PEAK_RATIO times GPipe's
+# (__graft_entry__.py:219-224).
+PIPE_SCHEDULES = ("gpipe", "1f1b")
+PIPE_MICROBATCHES = 8  # microbatches of one row at [8, 2048]
+PIPE_STEPS = 6  # warm-up, capture, four replays
+PIPE_EAGER_STEPS = 3
+PIPE_PEAK_RATIO = 1.05
+
+
+def phase_pipe(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
+    """``bench_400m`` (dense attention, fp32 parameters, bf16 compute, remat
+    "dots") through ``make_pipeline_train_step`` over a one-card mesh (a
+    world-size-1 NCCL group), ``PIPE_MICROBATCHES`` microbatches, under each
+    schedule: ``PIPE_STEPS`` steps through the pump (warm-up, capture,
+    replays), then ``PIPE_EAGER_STEPS`` eager steps from a fresh state of
+    the same seed, which must equal the captured ones bit for bit; the peak
+    memory of the last eager step above what was allocated before it. The
+    first step's loss must lie within ``MESH_LOSS_RTOL`` of the
+    non-pipelined dense loss on the same weights and batch, and 1F1B's peak
+    within ``PIPE_PEAK_RATIO`` of GPipe's. No flash kernel runs (checked by
+    name in a profiled replay). Printed: replay ms (CUDA events), tokens/s,
+    MFU, peaks, launches and device ms by kind of a profiled replay."""
+    from ray_tpu_torch.models.transformer import loss_fn
+    from ray_tpu_torch.parallel import (
+        DEFAULT_RULES,
+        MeshConfig,
+        batch_sharding,
+        build_mesh,
+        default_optimizer,
+        make_pipeline_train_step,
+        make_sharded_state,
+    )
+    from torch.distributed.tensor import distribute_tensor
+
+    check(cfg.attn_impl == "dense" and cfg.remat
+          and cfg.remat_policy == "dots", "the pipelined bench_400m trains "
+          "with dense attention under remat 'dots'")
+    cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
+    flops = train_flops(cfg, b, s)
+    out = {"phase": "pipe", "batch": [b, s], "n_layers": cfg.n_layers,
+           "microbatches": PIPE_MICROBATCHES, "steps": PIPE_STEPS,
+           "pp": 1, "runs": {}}
+    with one_card_process_group():
+        mesh = build_mesh(MeshConfig(dp=1))
+
+        def placed(i):
+            return {k: distribute_tensor(torch.from_numpy(v).cuda(), mesh,
+                                         batch_sharding(mesh)[1],
+                                         src_data_rank=None)
+                    for k, v in cycle[i].items()}
+
+        state, _ = make_sharded_state(cfg, default_optimizer(), SEED,
+                                      mesh=mesh)
+        with torch.no_grad():
+            dense_loss = loss_fn(state.params, placed(0), cfg,
+                                 mesh).full_tensor().item()
+        del state
+        torch.cuda.empty_cache()
+        out["dense_first_loss"] = dense_loss
+        for schedule in PIPE_SCHEDULES:
+            t0 = time.perf_counter()
+            run = mesh_train_run(cfg, cycle, mesh, DEFAULT_RULES,
+                                 steps=PIPE_STEPS,
+                                 pipeline=(schedule, PIPE_MICROBATCHES))
+            del run["state"], run["step"], run["params"]
+            torch.cuda.empty_cache()
+            check(run["launches"] == (0, 0, 0), f"{schedule}: a replay "
+                  f"launched flash kernels {run['launches']}")
+            losses = [m[0] for m in run["metrics"]]
+            rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+            check(all(np.isfinite(losses)) and rel <= MESH_LOSS_RTOL,
+                  f"{schedule}: losses {losses} against the dense step's "
+                  f"{dense_loss}")
+            opt = default_optimizer()
+            state, sh = make_sharded_state(cfg, opt, SEED, mesh=mesh)
+            step = make_pipeline_train_step(cfg, opt, PIPE_MICROBATCHES,
+                                            mesh=mesh, state_shardings=sh,
+                                            schedule=schedule)
+            eager = []
+            for i in range(PIPE_EAGER_STEPS):
+                batch = placed(i)
+                if i == PIPE_EAGER_STEPS - 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                eager.append(_metric(step.eager(state, batch)[1]))
+            torch.cuda.synchronize()
+            eager_peak = torch.cuda.max_memory_allocated() - base
+            check(eager == run["metrics"][:PIPE_EAGER_STEPS],
+                  f"{schedule}: eager steps {eager} != captured "
+                  f"{run['metrics'][:PIPE_EAGER_STEPS]}")
+            del state, step, opt, batch
+            torch.cuda.empty_cache()
+            mean_ms = float(np.mean(run["replay_ms"]))
+            prof = run["profile"]
+            out["runs"][schedule] = {
+                "losses": losses, "grad_norms": [m[1] for m in
+                                                 run["metrics"]],
+                "first_loss_rel_diff_vs_dense": rel,
+                "replay_ms": run["replay_ms"], "replay_ms_mean": mean_ms,
+                "tokens_per_s": b * s / mean_ms * 1e3,
+                "mfu": flops / (mean_ms / 1e3) / PEAK_BF16_FLOPS,
+                "eager_step_peak_above_start_bytes": eager_peak,
+                "peak_memory_bytes": run["peak_bytes"],
+                "memory_above_state_bytes": run["memory_above_state"],
+                "eager_vs_captured": {"eager": eager, "bit_equal": True},
+                "launches_per_step": dict(zip(FLASH_KINDS, run["launches"])),
+                "profile_launches_by_kind": prof["launches_by_kind"],
+                "profile_device_ms_by_kind": prof["device_ms_by_kind"],
+                "profile_top_kernels_ms": prof["top_kernels_ms"],
+                "profile_busy_share": prof["device_busy_share"],
+                "seconds": time.perf_counter() - t0}
+    peaks = {k: v["eager_step_peak_above_start_bytes"]
+             for k, v in out["runs"].items()}
+    out["peak_1f1b_over_gpipe"] = peaks["1f1b"] / peaks["gpipe"]
+    check(peaks["1f1b"] <= PIPE_PEAK_RATIO * peaks["gpipe"],
+          f"1F1B's peak {peaks['1f1b']} above {PIPE_PEAK_RATIO} x GPipe's "
+          f"{peaks['gpipe']}")
+    emit(out)
+    return out
+
+
 # multicard: bench_400m over four cards (NCCL, one process per card, spawned
-# by this script) in three layouts, each against the one-card run of the same
-# seed and batches (dense attention for ring and Ulysses, whose math it is;
-# the same MoE model for the expert layout), losses within MESH_LOSS_RTOL per
-# step; then dryrun_multidevice(4). Kinds of kernel in a replay: NCCL's
-# collectives first, then the train step's kinds.
+# by this script) in six layouts, each against the one-card run of the same
+# seed and batches (dense attention for ring, Ulysses and the pipelines, whose
+# math it is; the same MoE model for the expert layout), losses within
+# MESH_LOSS_RTOL per step; then dryrun_multidevice(4). Kinds of kernel in a
+# replay: NCCL's collectives first, then the train step's kinds.
 MULTICARD_WORLD = 4
 MULTICARD_STEPS = 4  # warm-up, capture, two replays
 MULTICARD_KINDS = {"nccl": "nccl", **MOE_KINDS}
-MULTICARD_LAYOUTS = {
-    "ring_dp2_sp2": ({"dp": 2, "sp": 2}, {"attn_impl": "ring"}),
-    "ulysses_sp2_tp2": ({"sp": 2, "tp": 2}, {"attn_impl": "ulysses"}),
+MULTICARD_LAYOUTS = {  # mesh, config changes, pipeline (schedule, M)
+    "ring_dp2_sp2": ({"dp": 2, "sp": 2}, {"attn_impl": "ring"}, None),
+    "ulysses_sp2_tp2": ({"sp": 2, "tp": 2}, {"attn_impl": "ulysses"}, None),
     "moe_ep2_dp2": ({"dp": 2, "ep": 2}, {"moe_experts": 4, "moe_top_k": 2,
-                                          "moe_capacity_factor": 2.0}),
+                                          "moe_capacity_factor": 2.0}, None),
+    "pipe_1f1b_pp4": ({"pp": 4}, {"attn_impl": "dense"}, ("1f1b", 8)),
+    "pipe_gpipe_dp2_pp2": ({"dp": 2, "pp": 2}, {"attn_impl": "dense"},
+                           ("gpipe", 4)),
+    "pipe_1f1b_pp2_tp2": ({"pp": 2, "tp": 2}, {"attn_impl": "dense"},
+                          ("1f1b", 4)),
 }
 MULTICARD_TIMEOUT_S = 900
 
@@ -2084,18 +2247,20 @@ def multicard_rank(rank: int, world: int, port: str) -> None:
             torch.cuda.empty_cache()
         out = {"phase": "multicard", "world": world, "batch": [b, s],
                "layouts": {}}
-        for name, (sizes, kw) in MULTICARD_LAYOUTS.items():
+        for name, (sizes, kw, pipeline) in MULTICARD_LAYOUTS.items():
             stage(f"layout {name}")
             cfg = dataclasses.replace(base, **kw)
             mesh = build_mesh(MeshConfig(**sizes))
             run = mesh_train_run(cfg, cycle, mesh, DEFAULT_RULES,
-                                 steps=MULTICARD_STEPS, kinds=MULTICARD_KINDS)
+                                 steps=MULTICARD_STEPS, kinds=MULTICARD_KINDS,
+                                 pipeline=pipeline)
             ref = one_card["moe" if cfg.moe_experts else "dense"]
             rel = [abs(g[0] - r[0]) / abs(r[0])
                    for g, r in zip(run["metrics"], ref["metrics"])]
             prof = run["profile"]
             out["layouts"][name] = {
                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "pipeline": pipeline,
                 "losses": [m[0] for m in run["metrics"]],
                 "one_card_losses": [m[0] for m in ref["metrics"]],
                 "loss_rel_diff": rel,
@@ -2981,9 +3146,9 @@ def main(argv) -> int:
         return 0
     if argv not in ([], ["kernel"], ["decode_kernel"], ["serve_7b"],
                     ["train"], ["inference"], ["mesh"], ["moe"], ["seq"],
-                    ["multicard"]):
+                    ["pipe"], ["multicard"]):
         print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
-              "train | inference | mesh | moe | seq | multicard]",
+              "train | inference | mesh | moe | seq | pipe | multicard]",
               file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
@@ -3024,6 +3189,10 @@ def main(argv) -> int:
         phase_seq(TransformerConfig.bench_400m())
         print(smi, flush=True)
         return 0
+    if argv == ["pipe"]:
+        phase_pipe(bench_400m_dense())
+        print(smi, flush=True)
+        return 0
     if argv == ["multicard"]:
         phase_multicard()
         print(smi, flush=True)
@@ -3041,6 +3210,7 @@ def main(argv) -> int:
     mesh = phase_mesh(cfg)
     moe_run = phase_moe(bench_400m_moe())
     phase_seq(cfg)
+    phase_pipe(bench_400m_dense())
     phase_grad(cfg)
     inference = phase_inference(cfg)
     phase_serve(params, cfg)

@@ -35,8 +35,11 @@ Attention runs per shard (``flash_attention_sharded``, or the dense
 attention through ``attention_per_shard``; ring and Ulysses keep the
 sequence split over sp, and each shard's rotary tables are its own global
 positions' slice of the replicated ones), and so does the MoE FFN, with its
-expert all-to-alls over ep. A mesh with pp > 1 raises: the layer stack split
-over pp needs the pipeline, which is not ported.
+expert all-to-alls over ep. Over a mesh with pp > 1 the layer stack lies
+split over pp, and each layer's weights are made whole over pp just before
+the layer runs (``parallel/pipeline.py`` ``layers_whole``), as the
+reference's GSPMD gathers them; the pipeline schedules themselves are
+``parallel/pipeline.py``'s.
 """
 
 from __future__ import annotations
@@ -568,22 +571,26 @@ def forward(
     Under ``mesh`` the params and ``tokens`` are DTensors on it (see the
     module docstring) and so are the logits."""
     c = config
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    attn_fn = select_attn_fn(c, mesh)
+    if mesh is not None and "pp" in mesh.mesh_dim_names:
+        # The stack lies split over pp: each layer's weights are made whole
+        # over pp inside the layer's remat region (``layers_whole``).
+        from ray_tpu_torch.parallel.pipeline import layers_whole
+
+        per_layer = layers_whole(params["layers"], c.n_layers, mesh)
+        layer = remat_wrap(lambda x, whole: apply_layer(
+            x, whole(), c, positions, attn_fn, mesh), c)
+    else:
+        per_layer = unbind_layers(params, c.n_layers)
+        layer = remat_wrap(
+            lambda x, lp: apply_layer(x, lp, c, positions, attn_fn, mesh), c)
     if mesh is None:
         x = params["embed"][tokens].to(c.dtype)  # [B, S, D]
     else:
-        from ray_tpu_torch.parallel.mesh import axis_size
-
-        if axis_size(mesh, "pp") > 1:
-            raise NotImplementedError(
-                "a mesh with pp > 1 splits the layer stack over pipeline "
-                "stages, which needs the pipeline schedule (not ported yet)")
         x = _embedding(params["embed"], tokens, mesh).to(c.dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    attn_fn = select_attn_fn(c, mesh)
-    layer = remat_wrap(
-        lambda x, lp: apply_layer(x, lp, c, positions, attn_fn, mesh), c)
     aux = None  # a DTensor over a mesh with MoE: no plain zeros beside it
-    for lp in unbind_layers(params, c.n_layers):
+    for lp in per_layer:
         x, a = layer(x, lp)
         aux = a if aux is None else aux + a
     logits = lm_head(params, x, c)

@@ -16,7 +16,7 @@ On four gloo processes (a 2 x 2 ("dp", "tp") mesh, ``tests/torch_gloo.py``):
 the pytest process's CPU devices (fp32, atol 2e-5, as
 tests/test_model.py:205-218); ``shard_box`` against DTensor's own local
 tensors, uneven splits included (exact); the sharded batch pump; and
-``dryrun_multidevice(4, "cpu")``.
+``dryrun_multidevice(4, "cpu")`` (parts 1, 2, 2c and 3).
 """
 
 import json
@@ -129,18 +129,20 @@ def test_out_of_order_tuple_rule_raises():
 
 
 def test_a_mesh_with_pipeline_stages_raises():
-    """A layer stack split over pp needs the pipeline schedule, which is not
-    ported: the forward refuses such a mesh before it runs anything."""
+    """Over a mesh with pp > 1 the forward makes each layer whole over pp
+    from the stage that holds it (tests/test_torch_pipeline.py trains it
+    against JAX over dp 2 x pp 2); a stack that pp splits into unequal
+    stages is refused before anything runs."""
 
     class PipelineMesh:
         mesh_dim_names = ("dp", "pp")
 
         def size(self, i):
-            return 2
+            return (2, 3)[i]
 
     cfg = ttf.TransformerConfig.tiny()
     params = ttf.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="pp > 1"):
+    with pytest.raises(ValueError, match="pp=3 must divide n_layers=2"):
         ttf.forward(params, torch.zeros((2, 8), dtype=torch.long), cfg,
                     PipelineMesh())
 
@@ -360,15 +362,29 @@ def test_sharded_pump_yields_each_ranks_box(four_ranks):
 def test_dryrun_multidevice_on_four_cpu_ranks(four_ranks):
     _, results, outs = four_ranks
     assert "dryrun_multidevice ok: mesh=" in outs[0]
+    assert "dryrun_multidevice ok (pipeline): mesh=" in outs[0]
+    assert "dryrun_multidevice ok (pp=4, M=8, 1f1b): mesh=" in outs[0]
     assert "dryrun_multidevice ok (moe/ep): mesh=" in outs[0]
     for r in results:
         dry = r["dryrun"]
-        # part 1: ring attention over sp = 2; part 3: 4 experts over ep = 2
+        # part 1: ring attention over sp = 2; part 2: GPipe over dp 2 x pp
+        # 2; part 2c: 1F1B over pp 4 at M 8 (part 2b needs 8 ranks); part
+        # 3: 4 experts over ep = 2
         assert dry["mesh"] == {"dp": 1, "pp": 1, "ep": 1, "sp": 2, "tp": 2}
+        assert dry["pipeline"]["mesh"] == {"dp": 2, "pp": 2, "ep": 1,
+                                           "sp": 1, "tp": 1}
+        assert dry["pipeline_deep"]["mesh"] == {"dp": 1, "pp": 4, "ep": 1,
+                                                "sp": 1, "tp": 1}
+        assert "pipeline_tp" not in dry
         assert dry["moe"]["mesh"] == {"dp": 1, "pp": 1, "ep": 2, "sp": 1,
                                       "tp": 2}
-        for part in (dry, dry["moe"]):
+        for name in ("pipeline", "pipeline_deep", "moe"):
+            part = dry[name]
             assert all(np.isfinite(part["losses"]))
             assert part["losses"][-1] < part["losses"][0]
+            assert part["losses"] == results[0]["dryrun"][name]["losses"]
+        assert all(np.isfinite(dry["losses"]))
+        assert dry["losses"][-1] < dry["losses"][0]
         assert dry["losses"] == results[0]["dryrun"]["losses"]
-        assert dry["moe"]["losses"] == results[0]["dryrun"]["moe"]["losses"]
+        peak = dry["pipeline_deep"]["peak_bytes"]
+        assert 0 < peak["1f1b"] <= 1.05 * peak["gpipe"], peak

@@ -56,7 +56,8 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.train.sharded_checkpoint",
             "ray_tpu_torch.ops.moe",
             "ray_tpu_torch.ops.ring_attention",
-            "ray_tpu_torch.ops.ulysses_attention"} <= set(mods)
+            "ray_tpu_torch.ops.ulysses_attention",
+            "ray_tpu_torch.parallel.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
