@@ -137,6 +137,13 @@ _d("object_broadcast_min_bytes", int, 16 * 1024 * 1024)
 # keeps locality; a consumer-holds-the-slots deadlock degrades to
 # default placement instead of wedging the pipeline)
 _d("soft_affinity_spill_after_s", float, 0.2)
+# packed exchanges: a partition task's P outputs land as ONE contiguous
+# block that every merge pulls (hot blocks ride the broadcast tree —
+# source egress O(fanout), not O(P)) when the exchange is at most this
+# wide; wider exchanges keep per-column refs, where moving 1/P of each
+# input per merge beats re-pulling the whole pack P times. 0 disables
+# packing entirely (legacy per-column shape).
+_d("data_exchange_packed_max_parts", int, 8)
 # how many tasks an owner keeps in flight per lease. DEFAULT 1: a task
 # blocked in a nested get() must not strand tasks committed behind it on
 # the same serial worker (they would get their own leases instead).

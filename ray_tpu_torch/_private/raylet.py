@@ -3024,6 +3024,35 @@ class Raylet:
         return rpc.RawReply([int(off), int(n)], sub, on_sent=on_sent,
                             token=token, off=int(off))
 
+    async def rpc_read_object_chunk(self, conn, data):
+        """Legacy msgpack chunk read (kept for mixed-version interop and
+        direct debugging; the pull path uses read_object_chunk_raw)."""
+        from ray_tpu_torch._private.ids import ObjectID
+
+        oid_bytes, off, n = data
+        oid = ObjectID(oid_bytes)
+        view = self.store.get(oid, timeout=0)
+        if view is None and await self._restore_object(oid):
+            view = self.store.get(oid, timeout=0)
+        if view is None:
+            return None
+        try:
+            off, n = int(off), int(n)
+            if off < 0 or n < 0 or off + n > view.nbytes:
+                # same validation as the raw/batch endpoints: negative
+                # off would silently serve bytes from the object's END
+                raise ValueError(
+                    f"chunk range [{off}, {off + n}) outside object "
+                    f"of {view.nbytes} bytes"
+                )
+            async with self._outbound_sem:
+                self._outbound_chunks += 1
+                self._transfer_bytes_out += n
+                return bytes(view[off : off + n])
+        finally:
+            view.release()
+            self.store.release(oid)
+
     # ------------- introspection -------------
     async def _task_plane_stats(self) -> Dict:
         """Aggregate task-plane counters from every registered worker

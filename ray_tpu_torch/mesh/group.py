@@ -908,17 +908,31 @@ class MeshGroup:
     # -- data-plane composition ----------------------------------------
 
     def member_node_ids(self) -> List[str]:
-        """Rank-ordered member node ids (hex)."""
+        """Rank-ordered member node ids (hex) — the shard->node map the
+        streaming data plane routes block production with (one entry per
+        rank: the port runs one process per card)."""
         return [m["node_id"] for m in self.members]
 
     def split_dataset(self, ds, n_per_host: int = 1) -> List:
-        """Per-rank ingest iterators placement-routed onto this gang (the
-        reference's ``streaming_split`` over member nodes). The port has
-        no ``Dataset`` yet: ROADMAP.md Queue 1 item 6 brings it, as it
-        brings the trainer's ``datasets=``."""
-        raise NotImplementedError(
-            "MeshGroup.split_dataset needs the port's Dataset "
-            "(ROADMAP.md Queue 1 item 6)")
+        """Per-rank ingest iterators for ``ds``, placement-routed onto
+        this gang: shard ``i``'s producing tasks are soft-pinned to rank
+        ``i``'s node (its consumer's reads become same-arena zero-copy
+        maps) and earlier stages stay on gang-labeled nodes via the
+        ``raytpu.io/gang`` stamp. Returns ``len(members) * n_per_host``
+        :class:`~ray_tpu_torch.data.iterator.DataIterator`\\ s in rank-major
+        order; consume them with
+        ``iter_device_batches(prefetch_blocks=...)`` so block arrival
+        (windowed striped pulls into the local arena) overlaps
+        ``run_step``. The reference's members are hosts; the port's are
+        ranks, so the hints repeat each rank's node."""
+        self._require_ready()
+        hints = [
+            nid for nid in self.member_node_ids()
+            for _ in range(max(1, n_per_host))
+        ]
+        return ds.streaming_split(
+            len(hints), locality_hints=hints, gang=self.name
+        )
 
     # -- observability / lifecycle -------------------------------------
 

@@ -18,7 +18,8 @@
     ).fit()
 
 Also the sharded async checkpoints of train states
-(``sharded_checkpoint``).
+(``sharded_checkpoint``), exported lazily: ``import ray_tpu_torch.train``
+loads no torch.
 """
 
 from ray_tpu_torch.train import session  # noqa: F401
@@ -33,18 +34,26 @@ from ray_tpu_torch.train.config import (  # noqa: F401
     RunConfig,
     ScalingConfig,
 )
-from ray_tpu_torch.train.sharded_checkpoint import (  # noqa: F401
-    ShardedSaveHandle,
-    checkpoint_step,
-    is_committed,
-    load_sharded,
-    save_sharded,
-)
 from ray_tpu_torch.train.trainer import (  # noqa: F401
     DataParallelTrainer,
     TorchTrainer,
     TrainingFailedError,
 )
+
+_SHARDED = ("ShardedSaveHandle", "checkpoint_step", "is_committed",
+            "load_sharded", "save_sharded", "upload_sharded_checkpoint",
+            "download_sharded_checkpoint")
+
+
+def __getattr__(name):
+    # lazy: the sharded checkpoints are torch's; the rest of Train (and a
+    # Tune driver, which reports through its session) loads no torch
+    if name in _SHARDED:
+        from ray_tpu_torch.train import sharded_checkpoint
+
+        return getattr(sharded_checkpoint, name)
+    raise AttributeError(name)
+
 
 __all__ = [
     "TorchTrainer",
@@ -62,5 +71,7 @@ __all__ = [
     "is_committed",
     "save_sharded",
     "load_sharded",
+    "upload_sharded_checkpoint",
+    "download_sharded_checkpoint",
     "session",
 ]

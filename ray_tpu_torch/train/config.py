@@ -11,9 +11,10 @@ the dp/pp/ep/sp/tp axes of one device mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
-from ray_tpu_torch.parallel.mesh import MeshConfig
+if TYPE_CHECKING:  # the mesh module loads torch; a tune driver needs none
+    from ray_tpu_torch.parallel.mesh import MeshConfig
 
 
 @dataclasses.dataclass

@@ -27,6 +27,7 @@ class TrainContext:
     world_size: int
     experiment_name: str
     mesh_config: Optional[Any] = None  # parallel.MeshConfig
+    dataset_shards: Optional[Dict[str, Any]] = None  # name -> DataIterator
     device: str = "cpu"  # the worker's torch device, set by the worker
 
 
@@ -126,12 +127,16 @@ def get_device():
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's shard of ``TorchTrainer(datasets={name: ds})`` in the
-    reference. The port has no ``Dataset`` yet (ROADMAP Queue 1 item 6)."""
-    raise NotImplementedError(
-        "get_dataset_shard needs ray_tpu_torch's Dataset, which is not "
-        "ported yet (ROADMAP Queue 1 item 6)"
-    )
+    """This worker's streaming shard of ``TorchTrainer(datasets={name: ds})``
+    (parity: ray.train session.get_dataset_shard / ``get_dataset_shard:958``).
+    Returns a ``ray_tpu_torch.data.DataIterator``; its
+    ``iter_device_batches()`` lands batches on this worker's card."""
+    shards = _get_session().context.dataset_shards or {}
+    if name not in shards:
+        raise KeyError(
+            f"no dataset {name!r} was passed to TorchTrainer(datasets=...)"
+        )
+    return shards[name]
 
 
 def make_mesh(mesh_config=None):

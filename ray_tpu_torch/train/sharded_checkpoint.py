@@ -37,7 +37,9 @@ optax's ``[<flat index 2>][1][0].count``, ``.mu[...]`` and ``.nu[...]``.
 
 Process index and count come from ``torch.distributed`` when it is
 initialized, else 0 and 1. ``upload_sharded_checkpoint`` and
-``download_sharded_checkpoint`` wait for the port's runtime planes.
+``download_sharded_checkpoint`` copy a committed checkpoint directory to
+and from external storage (``_private/external_storage.py``: a ``file://``
+path or a bucket URI).
 """
 
 from __future__ import annotations
@@ -544,3 +546,31 @@ def load_sharded(path: str, *, like=None, slices=None):
         _restore_train_state(ckpt, like)
         return like
     return _rebuild(ckpt, like)
+
+
+def upload_sharded_checkpoint(path: str, uri: str, *, step: int = 0) -> str:
+    """Push a committed sharded checkpoint to external storage (reference
+    tune/syncer.py upload path; the bucket is the durable copy — a node's
+    disk dies with the node). Call from ONE process after
+    ``save_sharded(..., wait=True)``; returns the remote URI."""
+    from ray_tpu_torch._private.external_storage import storage_from_uri
+
+    if not is_committed(path, step):
+        raise RuntimeError(
+            f"checkpoint at {path} step {step} is not committed"
+        )
+    storage = storage_from_uri(uri)
+    name = os.path.basename(path.rstrip(os.sep))
+    return storage.upload_dir(path, name)
+
+
+def download_sharded_checkpoint(uri: str, path: str) -> str:
+    """Fetch a sharded checkpoint from external storage into ``path`` for
+    ``load_sharded`` (any mesh shape — cross-shape restore is the
+    loader's job)."""
+    from ray_tpu_torch._private.external_storage import storage_from_uri
+
+    storage = storage_from_uri(uri.rsplit("/", 1)[0])
+    name = uri.rstrip("/").rsplit("/", 1)[1]
+    storage.download_dir(name, path)
+    return path

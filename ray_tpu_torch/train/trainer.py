@@ -47,15 +47,11 @@ class TorchTrainer:
         datasets: Optional[Dict[str, Any]] = None,
         resume_from_checkpoint: Optional[Checkpoint] = None,
     ):
-        if datasets:
-            raise NotImplementedError(
-                "TorchTrainer(datasets=...) needs ray_tpu_torch's Dataset, "
-                "which is not ported yet (ROADMAP Queue 1 item 6)"
-            )
         self.train_loop_per_worker = train_loop_per_worker
         self.train_loop_config = train_loop_config or {}
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
         self.resume_from_checkpoint = resume_from_checkpoint
 
         name = self.run_config.name or f"torchtrainer_{int(time.time())}"
@@ -107,14 +103,25 @@ class TorchTrainer:
             use_gpu=sc.use_gpu,
             placement_strategy=sc.placement_strategy,
         )
+        shard_lists = {}
         try:
             group.bootstrap_distributed()
+            # One streaming execution per dataset, split across the workers
+            # (blocks flow worker-side through the coordinator actor).
+            shard_lists = {
+                name: ds.streaming_split(sc.num_workers)
+                for name, ds in self.datasets.items()
+            }
             contexts = [
                 TrainContext(
                     world_rank=i,
                     world_size=sc.num_workers,
                     experiment_name=os.path.basename(self.experiment_path),
                     mesh_config=sc.mesh,
+                    dataset_shards={
+                        name: shards[i]
+                        for name, shards in shard_lists.items()
+                    },
                 )
                 for i in range(sc.num_workers)
             ]
@@ -127,6 +134,9 @@ class TorchTrainer:
             )
             return self._drain(group)
         finally:
+            for shards in shard_lists.values():
+                if shards:
+                    shards[0].stop()  # reap the split coordinator actor
             group.shutdown()
 
     def _drain(self, group: WorkerGroup) -> Dict:

@@ -38,6 +38,9 @@ class _TrainWorker:
         self._thread: Optional[threading.Thread] = None
         self._device = "cpu"
         self._store = None  # rank 0's TCP store, held while the group lives
+        # a failed init_runtime whose caller did not wait for it (a tune
+        # trial): the train loop raises it instead of running on the CPU
+        self._init_error: Optional[BaseException] = None
 
     # -- bootstrap --
 
@@ -48,10 +51,11 @@ class _TrainWorker:
 
         if use_gpu:
             if not torch.cuda.is_available():
-                raise RuntimeError(
+                self._init_error = RuntimeError(
                     "use_gpu=True but this worker sees no CUDA device "
                     "(its lease's CUDA_VISIBLE_DEVICES names no usable card)"
                 )
+                raise self._init_error
             self._device = "cuda:0"
             torch.cuda.set_device(0)
         else:
@@ -120,8 +124,12 @@ class _TrainWorker:
         _set_session(sess)
         device = self._device
 
+        init_error = self._init_error
+
         def run():
             try:
+                if init_error is not None:
+                    raise init_error
                 if device.startswith("cuda"):
                     import torch
 

@@ -457,12 +457,6 @@ def test_gang_resources_give_each_rank_one_card():
                   devices_per_host=1)
 
 
-def test_split_dataset_waits_for_the_ports_dataset():
-    mg = object.__new__(MeshGroup)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        mg.split_dataset(None)
-
-
 # ---------------- the slice as a whole, against JAX ----------------
 
 STEPS, SAVE_AFTER = 5, 3

@@ -71,7 +71,14 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.util.collective",
             "ray_tpu_torch.autoscaler",
             "ray_tpu_torch.cloud_provider",
-            "ray_tpu_torch.cloud_rest"} <= set(mods)
+            "ray_tpu_torch.cloud_rest",
+            "ray_tpu_torch.data.dataset",
+            "ray_tpu_torch.data.streaming",
+            "ray_tpu_torch.data.shuffle",
+            "ray_tpu_torch.data.io",
+            "ray_tpu_torch.data.prefetch",
+            "ray_tpu_torch.tune.tuner",
+            "ray_tpu_torch._private.test_utils"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -103,7 +110,9 @@ def test_the_scan_covers_every_kernel_module():
             "ray_tpu_torch/_private/gcs.py",
             "ray_tpu_torch/mesh/plan.py",
             "ray_tpu_torch/mesh/group.py",
-            "ray_tpu_torch/util/collective.py"} <= names
+            "ray_tpu_torch/util/collective.py",
+            "ray_tpu_torch/data/streaming.py",
+            "ray_tpu_torch/tune/tuner.py"} <= names
 
 
 def test_importing_the_package_loads_no_torch():
@@ -115,6 +124,27 @@ def test_importing_the_package_loads_no_torch():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch._private.worker_main\n"
         "import ray_tpu_torch.mesh, ray_tpu_torch.cloud_rest\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_no_cuda_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_data_and_tune_loads_no_torch():
+    """Data and Tune run on CPU workers and drivers: a fresh interpreter's
+    `import ray_tpu_torch.data, ray_tpu_torch.tune` (and Train's session,
+    which a trial reports through) loads neither torch nor jax nor
+    ray_tpu. The device pump imports torch only when it is called."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.tune\n"
+        "import ray_tpu_torch.data.preprocessors, ray_tpu_torch.train\n"
+        "from ray_tpu_torch.data import device_batches, DataIterator\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"

@@ -65,13 +65,12 @@ def test_exports_and_defaults():
     for name in ("TorchTrainer", "DataParallelTrainer", "ScalingConfig",
                  "RunConfig", "CheckpointConfig", "FailureConfig",
                  "Checkpoint", "CheckpointManager", "Result",
-                 "TrainingFailedError", "session"):
+                 "TrainingFailedError", "session", "save_sharded",
+                 "upload_sharded_checkpoint", "download_sharded_checkpoint"):
         assert hasattr(train, name), name
     assert DataParallelTrainer is TorchTrainer
     assert ScalingConfig().worker_resources() == {"CPU": 1.0, "GPU": 1.0}
     assert ScalingConfig(**CPU).worker_resources() == {"CPU": 1.0}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TorchTrainer(lambda: None, datasets={"train": object()})
 
 
 def _make_mnist_dp_loop():

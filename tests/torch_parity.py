@@ -30,43 +30,57 @@ def outcome(fn, *args, **kwargs):
 
 
 def assert_no_leaks(timeout_s: float = 10.0):
-    """The port's leak ledger at teardown (the reference's
-    ``test_utils.assert_no_leaks`` without the autoscaler-intent table,
-    which the port has no autoscaler for): every alive raylet's
-    ``node_stats["leaks"]`` and the driver's ``leak_stats()`` all zero,
-    polled while background releases drain."""
-    import time
+    """The port's leak ledger at teardown: its copy of the reference's
+    ``test_utils.assert_no_leaks`` over the connected cluster (every alive
+    raylet's ``node_stats["leaks"]``, the driver's ``leak_stats()`` and the
+    GCS's autoscaler-intent table), polled while background releases
+    drain."""
+    from ray_tpu_torch._private.test_utils import assert_no_leaks as audit
 
-    from ray_tpu_torch._private import rpc
-    from ray_tpu_torch._private import worker as worker_mod
+    audit(timeout_s=timeout_s)
 
-    cluster = worker_mod.global_worker.cluster
-    assert cluster is not None, "no cluster to audit (not connected?)"
-    impl = getattr(cluster, "_impl", cluster)
-    deadline = time.monotonic() + timeout_s
-    while True:
-        last, clean = {}, True
-        for n in impl.nodes.values():
-            if n.proc.poll() is not None:
-                continue
-            try:
-                client = rpc.Client.connect(n.raylet_addr, timeout=5)
-                try:
-                    stats = client.call("node_stats", None, timeout=5)
-                finally:
-                    client.close()
-            except Exception as e:  # an unreachable raylet is not clean
-                clean = False
-                last[n.node_id.hex()] = {"unreachable": str(e)}
-                continue
-            leaks = dict(stats.get("leaks") or {})
-            last[n.node_id.hex()] = leaks
-            clean = clean and not any(leaks.values())
-        mine = worker_mod.global_worker.core_worker.leak_stats()
-        last["driver"] = mine
-        clean = clean and not any(mine.values())
-        if clean:
-            return
-        if time.monotonic() >= deadline:
-            raise AssertionError(f"resource leaks at teardown: {last}")
-        time.sleep(0.25)
+
+def plain(x):
+    """A flow's result as plain Python data: numpy arrays and scalars, and
+    CPU torch tensors, become ``("nd", dtype name, nested list)`` or the
+    scalar's value, so the two packages' results compare with ``==``."""
+    import numpy as np
+
+    if type(x).__module__.startswith("torch"):
+        x = x.numpy()
+    if isinstance(x, np.ndarray):
+        return ("nd", str(x.dtype), x.tolist())
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (list, tuple)):
+        return type(x)(plain(v) for v in x)
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    return x
+
+
+def run_flows(name, flows, init_kwargs, make_args=lambda name: ()):
+    """Runs each flow ``flow(rt, *make_args(name))`` in ONE runtime session
+    of package ``name``, returning ``{flow name: outcome}`` with values made
+    ``plain``. The reference's session runs with the automatic GC off and a
+    collection between flows: the cyclic GC can finalize an ObjectRef
+    inside the reference's ``CoreWorker._on_ref_created`` lock and hang it
+    (ROADMAP Queue 3). The port runs with the GC on."""
+    import gc
+    import importlib
+
+    rt = importlib.import_module(name)
+    gc.collect()
+    if name == "ray_tpu":
+        gc.disable()
+    rt.init(**init_kwargs)
+    out = {}
+    try:
+        for flow in flows:
+            res = outcome(flow, rt, *make_args(name))
+            out[flow.__name__] = plain(res)
+            gc.collect()
+    finally:
+        rt.shutdown()
+        gc.enable()
+    return out
