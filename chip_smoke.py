@@ -14,9 +14,10 @@
     timeout 600 python3 chip_smoke.py mesh_group  # the mesh_group phase only
     timeout 600 python3 chip_smoke.py data     # the data phase only
     timeout 600 python3 chip_smoke.py tune     # the tune phase only
+    timeout 600 python3 chip_smoke.py rl       # the rl phase only
     python3 chip_smoke.py multicard            # four cards; not in the default run
 
-Run from the repo root on a machine with one CUDA card. Seventeen phases,
+Run from the repo root on a machine with one CUDA card. Eighteen phases,
 run in the order below but for serve_7b, which runs right after the
 kernel phases; any
 failure raises and the script exits non-zero without a result line. A
@@ -26,7 +27,7 @@ profiler has lost a kernel's record now and then); the checks read the
 last reading, and the readings go beside it (``launch_readings``). With
 the argument ``kernel`` (or ``decode_kernel``, ``serve_7b``, ``train``,
 ``inference``, ``mesh``, ``moe``, ``seq``, ``pipe``, ``runtime``,
-``mesh_group``, ``data``, ``tune``) it runs the kernel
+``mesh_group``, ``data``, ``tune``, ``rl``) it runs the kernel
 phases (or that phase, ``decode_kernel`` building its kernel first) alone
 and prints no result line: the first call after a kernel (or that path)
 changes, under ``timeout``. ``multicard`` needs four cards (it raises with
@@ -46,7 +47,10 @@ MeshGroup over two simulated hosts of two cards each
 checkpoint, recovered onto ``{"dp": 4, "tp": 1}``; and a dp 4
 ``TorchTrainer`` fed from a ``Dataset`` of 32 files
 (``multicard_data``): every row reaches exactly one rank, on four distinct
-cards, rank r's batches being the blocks with ``idx % 4 == r``.
+cards, rank r's batches being the blocks with ``idx % 4 == r``; and
+IMPALA's learner over four learner actors on four distinct cards
+(``multicard_rl``): the dp 4 update on one batch against one learner's,
+then 3 async iterations with 4 workers.
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
@@ -294,6 +298,25 @@ cards, rank r's batches being the blocks with ``idx % 4 == r``.
    48 / 24 / 24 flash launches per replay by name in each trial. Printed:
    ``fit()`` s, each trial's replay ms (two processes share the card) and
    peak memory.
+18. rl: the RLlib port (``ray_tpu_torch/rllib/``), its learners on the
+   card and its env runners CPU actors. First the learner against its
+   plain CPU twin on the same inputs (fp32, TF32 off; ``RL_TWIN_TOL``):
+   PPO's update (8 epochs x 4 minibatches of 256 MinAtar-Breakout steps),
+   IMPALA's V-trace loss and gradients over a 256-step rollout, DQN's step
+   (32 minibatches of 64, double-Q, target copies), SAC's step (16 of 128
+   on PointGoal2D) and BC's step (16 of 256). Then on a local session: PPO
+   on MinAtar-Breakout at ``PPOConfig``'s defaults (2 workers x 512 steps,
+   hidden 64 x 64) for 5 iterations (wall, sample and weights-to-workers s
+   per iteration, the update's device ms by CUDA events; parameters on
+   ``cuda:0``; nvidia-smi lists no CUDA context but this process's while
+   the env runners live); IMPALA (one learner) and APPO for 3 iterations
+   each and DQN for 4, all on MinAtar-Breakout (async updates, env steps,
+   finite losses); SAC on PointGoal2D with the reference test's config
+   until its mean episode reward passes -15, at most 40 iterations (the
+   one learning check); two-agent PPO for 2 iterations; BC from a JSONL
+   file of 3,000 expert steps written by ``collect_experience``, 2 train
+   calls (the loss falls) and ``evaluate``. No kernel of the five launches
+   on this path (their counters are checked unchanged).
 
 Prints one JSON line per phase, the card's name and power limit (as
 nvidia-smi reports them), a ``kernels`` JSON line (five kernels; the int8
@@ -305,7 +328,8 @@ step, per replay of the runtime's GPU task, per replay of its
 ``TorchTrainer``, per replay of the MeshGroup's step, per replay of the
 data phase's trainer and gang, and per replay of a tune trial; the decode
 attention kernel's per decode step of the
-runtime's serving actor and of its Serve deployment), the whole run's
+runtime's serving actor and of its Serve deployment; the rl phase launches
+none of them), the whole run's
 seconds, and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2528,6 +2552,7 @@ def phase_multicard() -> None:
     multicard_runtime()
     multicard_mesh_group()
     multicard_data()
+    multicard_rl()
 
 
 def _multicard_trainer_loop(config):
@@ -5054,6 +5079,530 @@ def phase_tune(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
     return out
 
 
+# ------------------------------------------------------------------- rl --
+RL_ENV = "MinAtar-Breakout"  # the in-repo Atari proxy (no gymnasium there)
+RL_OBS, RL_ACTIONS = 300, 3  # its observation width and actions
+RL_PPO_ITERS = 5
+RL_ASYNC_ITERS = 3  # IMPALA's and APPO's iterations
+RL_DQN_ITERS = 4
+RL_SAC_MAX_ITERS = 40  # tests/test_rllib_sac_ma.py:117-130's cap
+RL_SAC_BAR = -15.0  # and its bar
+RL_STORE_BYTES = 1 << 30  # the node's object store, in /dev/shm
+RL_CPUS = 16  # logical: the phase's 12 env runners (each holds one) at once
+# Twins, the learner on the card against the same update on the CPU (fp32,
+# TF32 off): losses within RL_LOSS_RTOL, gradients and the parameters after
+# an update of many Adam steps within RL_TWIN_TOL. On the CPU the same
+# computations in fp32 come within 8.7e-7 of fp64 (parameters) and 5.3e-6
+# (V-trace gradients); tests/test_torch_chip_smoke_rl.py holds that under
+# a third of the atol, so the card's own rounding has room. Adam's first
+# step moves a weight by about ±lr whatever its gradient, so a gradient
+# within float noise of zero that flipped sign between the devices would
+# show as a difference near lr, and fail.
+RL_LOSS_RTOL = 1e-4
+RL_TWIN_TOL = (1e-4, 2e-5)  # rtol, atol
+# four cards: the dp 4 update against one learner's on one batch, the
+# reference's criterion (tests/test_rllib.py:252-281) and tolerances;
+# elements whose one-learner gradient is within 1e-5 of its leaf's largest
+# (float noise) are held to 2 lr, Adam's first step either way
+RL_DP_LOSS_RTOL = 1e-4
+RL_DP_PARAM_TOL = (1e-5, 1e-6)
+
+
+def _f64(x) -> torch.Tensor:
+    """A tensor or host array as a float64 CPU tensor of its own."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().double().cpu()
+    return torch.from_numpy(np.array(x, np.float64))
+
+
+def _tree_err(got, want) -> tuple:
+    """(max abs, max rel) difference over the leaves of two trees."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    abs_err = rel_err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = _f64(a), _f64(b)
+        d = (a - b).abs()
+        abs_err = max(abs_err, float(d.max()) if d.numel() else 0.0)
+        rel_err = max(rel_err, float((d / b.abs().clamp_min(1e-30)).max())
+                      if d.numel() else 0.0)
+    return abs_err, rel_err
+
+
+def _tree_close(got, want, rtol: float, atol: float, what: str) -> float:
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = _f64(a), _f64(b)
+        check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+              f"{what}: card and CPU differ by {float((a - b).abs().max())} "
+              f"(rtol {rtol}, atol {atol})")
+    return _tree_err(got, want)[0]
+
+
+def rl_twin_inputs(seed: int = SEED + 40) -> dict:
+    """Seeded host inputs of the five learner twins, at the main path's
+    shapes: MinAtar-Breakout batches (binary planes, 300 wide; 3 actions)
+    for PPO (one iteration: 2 x 512 steps), V-trace (one IMPALA rollout of
+    256 steps), DQN (32 minibatches of 64) and BC (1,024 rows); PointGoal2D
+    for SAC (16 steps of 128)."""
+    from ray_tpu_torch.rllib.models import init_actor_critic, init_q_network
+    from ray_tpu_torch.rllib.sac import init_sac_networks
+
+    rng = np.random.default_rng(seed)
+
+    def planes(*shape):
+        return (rng.random((*shape, RL_OBS)) < 0.1).astype(np.float32)
+
+    n = 1024
+    adv = rng.normal(size=n).astype(np.float32)
+    cuts = (rng.random((1, 256)) < 0.02).astype(np.float32)
+    return {
+        "ac": init_actor_critic(seed, RL_OBS, RL_ACTIONS, device="cpu"),
+        "q": init_q_network(seed + 1, RL_OBS, RL_ACTIONS, device="cpu"),
+        "sac": init_sac_networks(seed + 2, 4, 2, (64, 64), device="cpu"),
+        "ppo": {"obs": planes(n),
+                "actions": rng.integers(0, RL_ACTIONS, n).astype(np.int32),
+                "logp": np.log(rng.uniform(0.2, 0.5, n)).astype(np.float32),
+                "advantages": (adv - adv.mean()) / (adv.std() + 1e-8),
+                "returns": rng.normal(size=n).astype(np.float32)},
+        "perms": torch.stack([torch.randperm(n, generator=torch.Generator()
+                                             .manual_seed(seed + e))
+                              for e in range(8)]),
+        "vtrace": {"obs": planes(1, 256),
+                   "actions": rng.integers(0, RL_ACTIONS,
+                                           (1, 256)).astype(np.int32),
+                   "logp": np.log(rng.uniform(0.2, 0.5, (1, 256))
+                                  ).astype(np.float32),
+                   "rewards": (rng.random((1, 256)) < 0.1).astype(np.float32),
+                   "next_values": rng.normal(size=(1, 256)).astype(np.float32),
+                   "terminals": cuts * (rng.random((1, 256)) < 0.5),
+                   "cuts": cuts},
+        "dqn": {"obs": planes(32, 64),
+                "actions": rng.integers(0, RL_ACTIONS,
+                                        (32, 64)).astype(np.int32),
+                "rewards": (rng.random((32, 64)) < 0.1).astype(np.float32),
+                "next_obs": planes(32, 64),
+                "terminals": (rng.random((32, 64)) < 0.02).astype(np.float32)},
+        "sac_batches": {
+            "obs": rng.uniform(-1, 1, (16, 128, 4)).astype(np.float32),
+            "actions": rng.uniform(-1, 1, (16, 128, 2)).astype(np.float32),
+            "rewards": -rng.random((16, 128)).astype(np.float32),
+            "next_obs": rng.uniform(-1, 1, (16, 128, 4)).astype(np.float32),
+            "terminals": np.zeros((16, 128), np.float32)},
+        "sac_noise": torch.randn(16, 2, 128, 2, generator=torch.Generator()
+                                 .manual_seed(seed + 3)),
+        "bc": {"obs": planes(16, 256),
+               "actions": rng.integers(0, RL_ACTIONS,
+                                       (16, 256)).astype(np.int32)},
+    }
+
+
+def rl_twin_run(inputs: dict, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """The five learner computations on ``device`` from ``inputs``: PPO's
+    update (8 epochs x 4 minibatches of 256), IMPALA's V-trace loss and its
+    gradients, DQN's step (32 minibatches, double-Q, a target copy every 16
+    steps), SAC's step (16) and BC's step (16). Returns each one's outputs
+    and its wall ms (synchronized)."""
+    from ray_tpu_torch.rllib import dqn, impala, offline, ppo, sac
+    from ray_tpu_torch.rllib.models import (adam, grads_of, to_device,
+                                            trainable, tree_leaves,
+                                            tree_map)
+
+    def on(tree):
+        return tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                        else t, to_device(tree, device))
+
+    def params(tree):
+        return trainable(tree_map(lambda t: t.to(dtype), tree), device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[name] = {"result": res, "ms": (time.perf_counter() - t0) * 1e3}
+
+    def run_ppo():
+        p = params(inputs["ac"])
+        aux = ppo.ppo_update(p, adam(p, 3e-4), on(inputs["ppo"]),
+                             inputs["perms"].to(device), ppo.PPOConfig())
+        return {"params": p, "aux": aux}
+
+    def run_vtrace():
+        p = params(inputs["ac"])
+        loss = impala.make_impala_loss(impala.IMPALAConfig())(
+            p, on(inputs["vtrace"]))
+        return {"loss": loss.detach(),
+                "grads": grads_of(loss, tree_leaves(p))}
+
+    def run_dqn():
+        p = params(inputs["q"])
+        target = tree_map(lambda t: t.detach().clone(), p)
+        cfg = dqn.DQNConfig(target_update_freq=16)
+        step, loss = dqn.dqn_update(p, target, adam(p, cfg.lr), 0,
+                                    on(inputs["dqn"]), cfg)
+        return {"params": p, "target": target, "loss": loss}
+
+    def run_sac():
+        cfg = sac.SACConfig(hidden=(64, 64))
+        state = sac.init_sac_state(cfg, 4, 2, device,
+                                   params=tree_map(lambda t: t.to(dtype),
+                                                   inputs["sac"]))
+        cl, al = sac.sac_update(state, on(inputs["sac_batches"]),
+                                inputs["sac_noise"].to(device, dtype), cfg,
+                                -2.0)
+        return {"params": state["params"], "target_q": state["target_q"],
+                "log_alpha": state["log_alpha"], "losses": [cl, al]}
+
+    def run_bc():
+        p = params(inputs["ac"])
+        loss = offline.bc_update(p, adam(p, 1e-3), on(inputs["bc"]))
+        return {"params": p, "loss": loss}
+
+    for name, fn in (("ppo_update", run_ppo), ("vtrace_loss", run_vtrace),
+                     ("dqn_step", run_dqn), ("sac_step", run_sac),
+                     ("bc_step", run_bc)):
+        timed(name, fn)
+    return out
+
+
+def rl_twins() -> dict:
+    """The learner's updates on ``cuda:0`` against their CPU twins (fp32,
+    TF32 off), on the same inputs; each within its tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = rl_twin_inputs()
+    card = rl_twin_run(inputs, torch.device("cuda", 0))
+    card = rl_twin_run(inputs, torch.device("cuda", 0))  # timed warm
+    host = rl_twin_run(inputs, torch.device("cpu"))
+    out = {}
+    for name in card:
+        c, h = card[name]["result"], host[name]["result"]
+        errs = {}
+        if name == "vtrace_loss":
+            errs["loss"] = _tree_close(c["loss"], h["loss"], RL_LOSS_RTOL,
+                                       0.0, f"{name} loss")
+            errs["grads"] = _tree_close(c["grads"], h["grads"],
+                                        *RL_TWIN_TOL, f"{name} grads")
+        else:
+            for key in c:
+                tol = ((RL_LOSS_RTOL, 1e-6) if key in ("aux", "loss",
+                                                       "losses")
+                       else RL_TWIN_TOL)
+                errs[key] = _tree_close(c[key], h[key], *tol,
+                                        f"{name} {key}")
+        out[name] = {"max_abs_err": errs, "card_ms": card[name]["ms"],
+                     "cpu_ms": host[name]["ms"]}
+    return out
+
+
+class _Timed:
+    """An algorithm's hook, wrapped: host seconds per call and, with
+    ``cuda``, the device ms from the call's start to its end (CUDA
+    events)."""
+
+    def __init__(self, fn, cuda: bool = False):
+        self.fn, self.cuda = fn, cuda
+        self.host_s, self._events = [], []
+
+    def __call__(self, *args, **kwargs):
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        if self.cuda:
+            end.record()
+            self._events.append((start, end))
+        self.host_s.append(time.perf_counter() - t0)
+        return out
+
+    def device_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self._events]
+
+
+def _card_clear(session_dir: str) -> list:
+    """The CUDA contexts on the card: this process's, and no actor's.
+    nvidia-smi names this machine's pids only where it shares the pid
+    namespace; elsewhere it lists one entry per context all the same, so
+    the driver's must be the only entry."""
+    import os
+
+    pids = _compute_app_pids()
+    ours = set(pids) & (set(_session_pids(session_dir)) | {os.getpid()})
+    check(len(pids) == 1 and ours <= {os.getpid()},
+          f"nvidia-smi lists CUDA contexts {pids}; the driver is "
+          f"{os.getpid()}, the session's processes "
+          f"{_session_pids(session_dir)}")
+    return pids
+
+
+def _on_card(params) -> bool:
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    return all(t.device == torch.device("cuda", 0)
+               for t in tree_leaves(params))
+
+
+def rl_algorithms() -> dict:
+    """Every algorithm of the phase, built at once, their learners on the
+    card: the env runners' processes (each imports torch) start together
+    and each algorithm then trains in turn. PPO on MinAtar-Breakout at
+    ``PPOConfig``'s defaults (2 workers x 512 steps, 8 epochs of
+    minibatches of 256, hidden 64 x 64); IMPALA (one learner) and APPO at
+    theirs (2 workers x 256); DQN at its own with the replay warm-up cut to
+    256 steps, so that every iteration learns; SAC on PointGoal2D with
+    tests/test_rllib_sac_ma.py:117-130's config (2 workers x 256 steps,
+    learning_starts 512, hidden 64 x 64); two-agent PPO, a policy per
+    agent."""
+    from ray_tpu_torch.rllib import (APPOConfig, DQNConfig, IMPALAConfig,
+                                     MultiAgentPPOConfig, PPOConfig,
+                                     SACConfig)
+
+    configs = {
+        "ppo": PPOConfig(env=RL_ENV),
+        "impala": IMPALAConfig(env=RL_ENV),
+        "appo": APPOConfig(env=RL_ENV),
+        "dqn": DQNConfig(env=RL_ENV, learning_starts=256),
+        "sac": SACConfig(env="PointGoal2D-v0", num_workers=2, rollout_len=256,
+                         learning_starts=512, hidden=(64, 64), seed=0),
+        "multi_agent": MultiAgentPPOConfig(
+            policy_mapping_fn=lambda aid: f"pol_{aid}", num_workers=2),
+    }
+    algos = {}
+    try:
+        for name, config in configs.items():
+            algos[name] = config.build()
+    except BaseException:
+        for algo in algos.values():
+            algo.stop()
+        raise
+    return algos
+
+
+def rl_ppo(algo, session_dir: str) -> dict:
+    """PPO for ``RL_PPO_ITERS`` iterations."""
+    try:
+        check(_on_card(algo.params), "PPO's parameters are not on cuda:0")
+        update = algo._update = _Timed(algo._update, cuda=True)
+        sample = algo._sample = _Timed(algo._sample)
+        weights = algo._broadcast = _Timed(algo._broadcast)
+        walls, results = [], []
+        for _ in range(RL_PPO_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+        pids = _card_clear(session_dir)
+        check(_on_card(algo.params), "PPO's parameters left cuda:0")
+    finally:
+        algo.stop()
+    last = results[-1]
+    check(all(np.isfinite(v) for r in results for v in r["info"].values()),
+          f"PPO's losses are not finite: {[r['info'] for r in results]}")
+    check(last["num_env_steps_sampled"] == RL_PPO_ITERS * 2 * 512,
+          f"PPO sampled {last['num_env_steps_sampled']} env steps")
+    return {"iterations": RL_PPO_ITERS, "wall_s": walls,
+            "sample_s": sample.host_s, "weights_to_workers_s": weights.host_s,
+            "update_ms": update.device_ms(), "update_host_s": update.host_s,
+            "episode_reward_mean": [r["episode_reward_mean"]
+                                    for r in results],
+            "info": last["info"], "params_on": "cuda:0",
+            "compute_app_pids": pids}
+
+
+def rl_async(algo, name: str) -> dict:
+    """IMPALA (one learner, on the card) or APPO for ``RL_ASYNC_ITERS``
+    iterations."""
+    try:
+        check(_on_card(algo.learners.params),
+              f"{name}'s parameters are not on cuda:0")
+        update = algo._update = _Timed(algo._update, cuda=True)
+        walls, results = [], []
+        for _ in range(RL_ASYNC_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+    finally:
+        algo.stop()
+    last = results[-1]
+    check(last["num_async_updates"] == 2 * RL_ASYNC_ITERS,
+          f"{name}: {last['num_async_updates']} async updates")
+    check(last["num_env_steps"] == 2 * RL_ASYNC_ITERS * 256,
+          f"{name}: {last['num_env_steps']} env steps")
+    check(all(np.isfinite(r["loss"]) for r in results),
+          f"{name}: losses {[r['loss'] for r in results]}")
+    return {"iterations": RL_ASYNC_ITERS, "wall_s": walls,
+            "update_ms": update.device_ms(),
+            "num_async_updates": last["num_async_updates"],
+            "num_env_steps": last["num_env_steps"],
+            "losses": [r["loss"] for r in results]}
+
+
+def rl_dqn(algo) -> dict:
+    """DQN for ``RL_DQN_ITERS`` iterations (2 workers x 128 steps, 32
+    minibatches of 64 an iteration)."""
+    try:
+        check(_on_card(algo.params), "DQN's parameters are not on cuda:0")
+        update = algo._update = _Timed(algo._update, cuda=True)
+        walls, results = [], []
+        for _ in range(RL_DQN_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+    finally:
+        algo.stop()
+    losses = [r["info"]["mean_td_loss"] for r in results]
+    check(all(np.isfinite(x) for x in losses), f"DQN's losses: {losses}")
+    check(results[-1]["num_env_steps_sampled"] == RL_DQN_ITERS * 256,
+          f"DQN sampled {results[-1]['num_env_steps_sampled']}")
+    return {"iterations": RL_DQN_ITERS, "wall_s": walls,
+            "update_ms": update.device_ms(), "losses": losses,
+            "sgd_steps": algo._sgd_steps}
+
+
+def rl_sac(algo, session_dir: str) -> dict:
+    """SAC until its mean episode reward passes ``RL_SAC_BAR``, at most
+    ``RL_SAC_MAX_ITERS`` iterations: the one learning check on the card."""
+    best, rewards, walls = -1e9, [], []
+    try:
+        check(_on_card(algo.params), "SAC's parameters are not on cuda:0")
+        update = algo._update = _Timed(algo._update, cuda=True)
+        for _ in range(RL_SAC_MAX_ITERS):
+            t0 = time.perf_counter()
+            m = algo.train()
+            walls.append(time.perf_counter() - t0)
+            rewards.append(m["episode_reward_mean"])
+            if np.isfinite(m["episode_reward_mean"]):
+                best = max(best, m["episode_reward_mean"])
+            if best > RL_SAC_BAR:
+                break
+        pids = _card_clear(session_dir)
+    finally:
+        algo.stop()
+    check(best > RL_SAC_BAR, f"SAC plateaued at {best:.2f} after "
+          f"{len(rewards)} iterations: {rewards}")
+    return {"iterations": len(rewards), "best_reward": best,
+            "episode_reward_mean": rewards, "wall_s": walls,
+            "update_ms": update.device_ms(), "info": m["info"],
+            "compute_app_pids": pids}
+
+
+def _breakout_expert(flat_obs) -> int:
+    """Track the ball with the paddle (tests/test_offline_webdataset.py)."""
+    n = 10
+    planes = flat_obs.reshape(3, n, n)
+    paddle_cols = np.where(planes[0][n - 1] > 0)[0]
+    ball = np.argwhere(planes[1] > 0)
+    if len(ball) == 0 or len(paddle_cols) == 0:
+        return 1
+    bx, px = ball[0][1], int(paddle_cols.mean())
+    return 0 if bx < px else (2 if bx > px else 1)
+
+
+def rl_ma_and_bc(algo) -> dict:
+    """Two-agent PPO for 2 iterations; BC from a JSONL file that
+    ``collect_experience`` wrote (3,000 expert steps on MinAtar-Breakout),
+    read back through ``read_experience``: 2 train calls and
+    ``evaluate``."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import (BCConfig, collect_experience,
+                                     read_experience, write_experience_json)
+
+    try:
+        check(all(_on_card(p) for p in algo.params.values()),
+              "multi-agent PPO's parameters are not on cuda:0")
+        ma = [algo.train() for _ in range(2)]
+    finally:
+        algo.stop()
+    check(set(ma[-1]["info"]) == {"pol_a0", "pol_a1"},
+          f"multi-agent PPO trained {set(ma[-1]['info'])}")
+    check(all(np.isfinite(v) for r in ma for d in r["info"].values()
+              for v in d.values()), f"multi-agent losses: {ma[-1]['info']}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_bc_")
+    try:
+        path = f"{work}/expert.jsonl"
+        rows = write_experience_json(
+            collect_experience(RL_ENV, _breakout_expert, 3000, seed=0), path)
+        bc = BCConfig(seed=0).build(read_experience(path))
+        check(_on_card(bc.params), "BC's parameters are not on cuda:0")
+        losses = [bc.train()["info"]["bc_loss"] for _ in range(2)]
+        t0 = time.perf_counter()
+        score = bc.evaluate(RL_ENV, episodes=5, seed=7)
+        eval_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(all(np.isfinite(x) for x in losses) and losses[1] < losses[0],
+          f"BC's losses {losses}")
+    return {"multi_agent": {"iterations": 2,
+                            "episode_reward_mean": [r["episode_reward_mean"]
+                                                    for r in ma],
+                            "info": ma[-1]["info"]},
+            "bc": {"rows": rows, "losses": losses, "evaluate_return": score,
+                   "evaluate_s": eval_s}}
+
+
+def _kernel_counts() -> tuple:
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import int8_matmul as im
+
+    return (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv,
+            im.launches, da.launches)
+
+
+def phase_rl() -> dict:
+    """The rl phase (see the module docstring, 18)."""
+    import ray_tpu_torch as rt
+
+    check(not rt.is_initialized(), "the runtime is already up")
+    started = time.perf_counter()
+    before = _kernel_counts()
+    out = {"phase": "rl", "twins": rl_twins()}
+    emit({"phase": "rl_twins", **out["twins"]})
+    info = rt.init(num_cpus=RL_CPUS, object_store_memory=RL_STORE_BYTES)
+    session = info["session_dir"]
+    algos = {}
+    try:
+        t0 = time.perf_counter()
+        algos = rl_algorithms()
+        out["build_s"] = time.perf_counter() - t0
+        for name, key, part in (
+                ("ppo", "ppo", lambda a: rl_ppo(a, session)),
+                ("impala", "impala", lambda a: rl_async(a, "impala")),
+                ("appo", "appo", lambda a: rl_async(a, "appo")),
+                ("dqn", "dqn", rl_dqn),
+                ("sac", "sac", lambda a: rl_sac(a, session)),
+                ("multi_agent_and_bc", "multi_agent", rl_ma_and_bc)):
+            t0 = time.perf_counter()
+            out[name] = {**part(algos.pop(key)),
+                         "part_s": time.perf_counter() - t0}
+            emit({"phase": f"rl_{name}", **out[name]})
+    finally:
+        for algo in algos.values():
+            algo.stop()
+        rt.shutdown()
+    left = _session_gone(session)
+    check(not left, f"session processes left after shutdown: {left}")
+    check(_kernel_counts() == before,
+          f"the RL path launched a kernel: {before} -> {_kernel_counts()}")
+    out["kernel_launches"] = 0
+    out["phase_s"] = time.perf_counter() - started
+    emit({k: out[k] for k in ("phase", "kernel_launches", "phase_s")})
+    return out
+
+
 MULTICARD_DATA_FILES = 32
 
 
@@ -5250,6 +5799,118 @@ def multicard_mesh_group() -> dict:
     return out
 
 
+def _dp_close(one, four, grads, lr: float) -> float:
+    """Leaf by leaf, the dp 4 parameters against one learner's after one
+    update (RL_DP_PARAM_TOL), but an element whose gradient is float noise
+    (within 1e-5 of its leaf's largest) only within 2 lr. Returns the
+    largest difference."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    rtol, atol = RL_DP_PARAM_TOL
+    worst = 0.0
+    for a, b, g in zip(tree_leaves(one), tree_leaves(four), grads):
+        a, b, g = _f64(a), _f64(b), _f64(g).abs()
+        noise = g <= 1e-5 * g.max()
+        bound = torch.where(noise, torch.full_like(a, 2 * lr),
+                            atol + rtol * a.abs())
+        d = (a - b).abs()
+        check(bool((d <= bound).all()),
+              f"dp 4 differs from one learner by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def multicard_rl() -> dict:
+    """IMPALA's learner over four learner actors, one card each
+    (``LearnerGroup(num_learners=4)``, NCCL): the learners on four distinct
+    cards; the dp 4 update on one [4, 256] MinAtar-Breakout batch against
+    one learner's in this process (``RL_DP_*``); then IMPALA with 4 workers
+    and 4 learners for ``RL_ASYNC_ITERS`` async iterations."""
+    import functools
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import IMPALAConfig
+    from ray_tpu_torch.rllib.impala import make_impala_loss
+    from ray_tpu_torch.rllib.learner_group import LearnerGroup
+    from ray_tpu_torch.rllib.models import (grads_of, init_actor_critic,
+                                            to_device, trainable,
+                                            tree_leaves)
+
+    n = torch.cuda.device_count()
+    check(n >= 4, f"multicard_rl needs 4 cards; {n} visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    started = time.perf_counter()
+    cfg = IMPALAConfig(env=RL_ENV, num_workers=4, num_learners=4)
+    rng = np.random.default_rng(SEED + 50)
+    shape = (4, 256)
+    batch = {
+        "obs": rng.random((*shape, RL_OBS)).astype(np.float32),
+        "actions": rng.integers(0, RL_ACTIONS, shape).astype(np.int32),
+        "logp": np.log(rng.uniform(0.2, 0.5, shape)).astype(np.float32),
+        "rewards": rng.random(shape).astype(np.float32),
+        "next_values": rng.random(shape).astype(np.float32),
+        "terminals": np.zeros(shape, np.float32),
+        "cuts": np.zeros(shape, np.float32),
+    }
+    params = init_actor_critic(SEED, RL_OBS, RL_ACTIONS, device="cpu")
+    loss_fn = make_impala_loss(cfg)
+    adam = functools.partial(torch.optim.Adam, lr=cfg.lr)
+    card = torch.device("cuda", 0)
+    p0 = trainable(params, card)
+    g0 = grads_of(loss_fn(p0, to_device(batch, card)), tree_leaves(p0))
+    info = rt.init(object_store_memory=RL_STORE_BYTES)
+    try:
+        check(rt.cluster_resources().get("GPU") == 4,
+              f"init granted {rt.cluster_resources()}")
+        one = LearnerGroup(loss_fn, params, adam, num_learners=1)
+        t0 = time.perf_counter()
+        four = LearnerGroup(loss_fn, params, adam, num_learners=4)
+        bring_up_s = time.perf_counter() - t0
+        try:
+            uuids = [i["uuid"] for i in four.learner_info]
+            check(len(set(uuids)) == 4 and all(
+                i["device"] == "cuda:0" for i in four.learner_info),
+                f"learners on {four.learner_info}")
+            l1, l4 = one.update(batch), four.update(batch)
+            check(abs(l1 - l4) <= RL_DP_LOSS_RTOL * max(1.0, abs(l1)),
+                  f"dp 4 loss {l4} against one learner's {l1}")
+            worst = _dp_close(one.get_params_host(),
+                              four.get_params_host(), g0, cfg.lr)
+            times = {}
+            for name, group in (("one", one), ("four", four)):
+                t0 = time.perf_counter()
+                group.update(batch)
+                times[name] = (time.perf_counter() - t0) * 1e3
+        finally:
+            four.shutdown()
+        algo = cfg.build()
+        try:
+            results = [algo.train() for _ in range(RL_ASYNC_ITERS)]
+            learners = algo.learners.learner_info
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    left = _session_gone(info["session_dir"])
+    check(not left, f"session processes left after shutdown: {left}")
+    last = results[-1]
+    check(len({i["uuid"] for i in learners}) == 4,
+          f"IMPALA's learners on {learners}")
+    check(last["num_async_updates"] == RL_ASYNC_ITERS
+          and last["num_env_steps"] == RL_ASYNC_ITERS * 4 * 256
+          and all(np.isfinite(r["loss"]) for r in results),
+          f"IMPALA x4 learners: {results}")
+    out = {"phase": "multicard_rl", "learner_uuids": uuids,
+           "dp1_loss": l1, "dp4_loss": l4, "dp4_max_abs_param_err": worst,
+           "learner_bring_up_s": bring_up_s,
+           "update_ms": times, "impala_losses": [r["loss"] for r in results],
+           "num_async_updates": last["num_async_updates"],
+           "num_env_steps": last["num_env_steps"],
+           "phase_s": time.perf_counter() - started}
+    emit(out)
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
@@ -5261,10 +5922,10 @@ def main(argv) -> int:
     if argv not in ([], ["kernel"], ["decode_kernel"], ["serve_7b"],
                     ["train"], ["inference"], ["mesh"], ["moe"], ["seq"],
                     ["pipe"], ["runtime"], ["mesh_group"], ["data"],
-                    ["tune"], ["multicard"]):
+                    ["tune"], ["rl"], ["multicard"]):
         print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
               "train | inference | mesh | moe | seq | pipe | runtime | "
-              "mesh_group | data | tune | multicard]", file=sys.stderr)
+              "mesh_group | data | tune | rl | multicard]", file=sys.stderr)
         return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
@@ -5306,6 +5967,10 @@ def main(argv) -> int:
         return 0
     if argv == ["pipe"]:
         phase_pipe(bench_400m_dense())
+        print(smi, flush=True)
+        return 0
+    if argv == ["rl"]:
+        phase_rl()
         print(smi, flush=True)
         return 0
     if argv == ["multicard"]:
@@ -5369,6 +6034,7 @@ def main(argv) -> int:
         "replay_ms": here["replay_ms"]})
     data = phase_data(cfg, here=here)
     tuned = phase_tune(cfg, here=here)
+    phase_rl()
     print(smi, flush=True)
     per_step = train["launches_per_step"]
     wrappers = train["wrapper_counts_in_run"]

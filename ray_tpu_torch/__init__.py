@@ -18,7 +18,8 @@ The model half, imported by the code that uses it: ``ops/`` (hand-written
 CUDA C++ kernels for Hopper: flash attention forward and backward, an int8
 weight-only matmul, decode attention), ``models/`` (``transformer.py``,
 ``generation.py``, ``convert.py``, ``quant.py``), ``parallel/`` (the mesh,
-the train step, the pipeline), ``data/``, ``train/``, ``serve/llm.py`` and
+the train step, the pipeline), ``data/``, ``train/``, ``serve/llm.py``,
+``rllib/`` (learners on the card, env runners on CPU actors) and
 ``graphs.py``. Its entry points run on the CUDA card unless the caller
 passes ``device="cpu"``.
 """

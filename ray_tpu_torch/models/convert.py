@@ -1,9 +1,10 @@
 """Moves parameters between the JAX package and the port.
 
 The two packages share one parameter tree (dict keys and stacked ``[L, ...]``
-shapes), so weights cross as numpy arrays: ``jax.tree.map(np.asarray,
-params)`` on the JAX side, ``params_from_numpy`` here; ``params_to_numpy``
-is the way back.
+shapes; RLlib's towers are lists of ``{"w", "b"}`` layers), so weights cross
+as numpy arrays: ``jax.tree.map(np.asarray, params)`` on the JAX side,
+``params_from_numpy`` here; ``params_to_numpy`` is the way back. Both walk
+dicts, lists and tuples.
 
 Int8-quantized leaves cross bit-exact as their int8 ``q`` and fp32 ``s``.
 On the JAX side ``jax.tree.map(np.asarray, qparams)`` keeps each QTensor,
@@ -17,14 +18,13 @@ and ``s``), from which the JAX QTensor is rebuilt.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.quant import QTensor
-from ray_tpu_torch.models.transformer import tree_map
 
 
 @dataclasses.dataclass
@@ -47,6 +47,15 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _tree_map(fn: Callable, tree):
+    """``fn`` over every leaf of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, val) for key, val in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_tree_map(fn, val) for val in tree)
+    return fn(tree)
+
+
 def _is_quantized(leaf) -> bool:
     return (isinstance(getattr(leaf, "q", None), np.ndarray)
             and isinstance(getattr(leaf, "s", None), np.ndarray))
@@ -63,7 +72,7 @@ def params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
     of tensors on ``device`` (CUDA by default), dtypes kept; a quantized
     leaf (numpy ``q`` and ``s``) becomes a QTensor."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
+    return _tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -83,4 +92,4 @@ def params_to_numpy(tree: Dict) -> Dict:
     """A tree of tensors -> the same tree of numpy arrays on the host
     (dtypes kept, except bf16, which comes back as the float32 of the same
     values); a QTensor comes back as a NumpyQTensor."""
-    return tree_map(_leaf_to_numpy, tree)
+    return _tree_map(_leaf_to_numpy, tree)

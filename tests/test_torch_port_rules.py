@@ -3,6 +3,7 @@ JAX nor anything of the JAX package, entry points run on CUDA unless the
 caller asks for another device, and chip_smoke.py fails without a card."""
 
 import ast
+import functools
 import os
 import pkgutil
 import shutil
@@ -15,9 +16,12 @@ import pytest
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch import rllib
 from ray_tpu_torch.data import iterator
 from ray_tpu_torch.models import convert, generation, quant, transformer
 from ray_tpu_torch.parallel import train_step
+from ray_tpu_torch.rllib import models as rl_models
+from ray_tpu_torch.rllib import rollout_worker, sac
 from ray_tpu_torch.serve import llm
 
 REPO = Path(__file__).resolve().parents[1]
@@ -78,7 +82,20 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.data.io",
             "ray_tpu_torch.data.prefetch",
             "ray_tpu_torch.tune.tuner",
-            "ray_tpu_torch._private.test_utils"} <= set(mods)
+            "ray_tpu_torch._private.test_utils",
+            "ray_tpu_torch.rllib",
+            "ray_tpu_torch.rllib.appo",
+            "ray_tpu_torch.rllib.common",
+            "ray_tpu_torch.rllib.dqn",
+            "ray_tpu_torch.rllib.envs",
+            "ray_tpu_torch.rllib.impala",
+            "ray_tpu_torch.rllib.learner_group",
+            "ray_tpu_torch.rllib.models",
+            "ray_tpu_torch.rllib.multi_agent",
+            "ray_tpu_torch.rllib.offline",
+            "ray_tpu_torch.rllib.ppo",
+            "ray_tpu_torch.rllib.rollout_worker",
+            "ray_tpu_torch.rllib.sac"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -112,7 +129,17 @@ def test_the_scan_covers_every_kernel_module():
             "ray_tpu_torch/mesh/group.py",
             "ray_tpu_torch/util/collective.py",
             "ray_tpu_torch/data/streaming.py",
-            "ray_tpu_torch/tune/tuner.py"} <= names
+            "ray_tpu_torch/tune/tuner.py",
+            "ray_tpu_torch/rllib/learner_group.py",
+            "ray_tpu_torch/rllib/ppo.py",
+            "ray_tpu_torch/rllib/impala.py",
+            "ray_tpu_torch/rllib/appo.py",
+            "ray_tpu_torch/rllib/dqn.py",
+            "ray_tpu_torch/rllib/sac.py",
+            "ray_tpu_torch/rllib/multi_agent.py",
+            "ray_tpu_torch/rllib/offline.py",
+            "ray_tpu_torch/rllib/rollout_worker.py",
+            "ray_tpu_torch/rllib/models.py"} <= names
 
 
 def test_importing_the_package_loads_no_torch():
@@ -188,6 +215,23 @@ ENTRY_POINTS = {
     "make_sharded_state": lambda: train_step.make_sharded_state(
         _tiny(), train_step.default_optimizer(), 0),
     "device_batches": lambda: iterator.device_batches(lambda: iter([]), 1),
+    # RLlib: each algorithm's learner, LearnerGroup, the networks' init and
+    # an env runner built without a device
+    "PPOConfig.build": lambda: rllib.PPOConfig().build(),
+    "IMPALAConfig.build": lambda: rllib.IMPALAConfig().build(),
+    "APPOConfig.build": lambda: rllib.APPOConfig().build(),
+    "DQNConfig.build": lambda: rllib.DQNConfig().build(),
+    "SACConfig.build": lambda: rllib.SACConfig().build(),
+    "MultiAgentPPOConfig.build": lambda: rllib.MultiAgentPPOConfig().build(),
+    "BCConfig.build": lambda: rllib.BCConfig().build(None),
+    "LearnerGroup": lambda: rllib.LearnerGroup(
+        lambda params, batch: 0.0, {"w": np.zeros(2, np.float32)},
+        functools.partial(torch.optim.Adam, lr=1e-3)),
+    "init_actor_critic": lambda: rl_models.init_actor_critic(0, 4, 2),
+    "init_q_network": lambda: rl_models.init_q_network(0, 4, 2),
+    "init_sac_networks": lambda: sac.init_sac_networks(0, 4, 2),
+    "RolloutWorker": lambda: rollout_worker.RolloutWorker(
+        "MinAtar-Breakout", 8, 0.99, 0.95),
 }
 
 
