@@ -16,11 +16,13 @@
     timeout 600 python3 chip_smoke.py tune     # the tune phase only
     timeout 600 python3 chip_smoke.py rl       # the rl phase only
     timeout 600 python3 chip_smoke.py platform # the platform phase only
+    timeout 600 python3 chip_smoke.py projection  # the projection phase only
+    timeout 600 python3 chip_smoke.py micro    # the micro phase only
     python3 chip_smoke.py multicard            # four cards; not in the default run
 
-Run from the repo root on a machine with one CUDA card. Nineteen phases,
-run in the order below but for serve_7b, which runs right after the
-kernel phases; any
+Run from the repo root on a machine with one CUDA card. Twenty-one phases,
+run in the order below but for serve_7b and micro, which run right after
+the kernel phases, and projection, which runs right after serve; any
 failure raises and the script exits non-zero without a result line. A
 profiled replay whose kernels counted by name fall short of what its graph
 holds is read again, up to three readings (``profile_launches``: the
@@ -28,7 +30,8 @@ profiler has lost a kernel's record now and then); the checks read the
 last reading, and the readings go beside it (``launch_readings``). With
 the argument ``kernel`` (or ``decode_kernel``, ``serve_7b``, ``train``,
 ``inference``, ``mesh``, ``moe``, ``seq``, ``pipe``, ``runtime``,
-``mesh_group``, ``data``, ``tune``, ``rl``, ``platform``) it runs the kernel
+``mesh_group``, ``data``, ``tune``, ``rl``, ``platform``, ``projection``,
+``micro``) it runs the kernel
 phases (or that phase, ``decode_kernel`` building its kernel first) alone
 and prints no result line: the first call after a kernel (or that path)
 changes, under ``timeout``. ``multicard`` needs four cards (it raises with
@@ -51,14 +54,18 @@ checkpoint, recovered onto ``{"dp": 4, "tp": 1}``; and a dp 4
 cards, rank r's batches being the blocks with ``idx % 4 == r``; and
 IMPALA's learner over four learner actors on four distinct cards
 (``multicard_rl``): the dp 4 update on one batch against one learner's,
-then 3 async iterations with 4 workers.
+then 3 async iterations with 4 workers; and ``ray_perf``'s mesh group and
+data plane legs with their ranks on the cards (``multicard_micro``: four
+NCCL ranks over dp 2 x tp 2, two over dp 2, each rank on a distinct card
+by its uuid).
 
 1. kernel: builds every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (nvcc,
    sm_90a, one process per source, all at once) and prints ptxas's
    registers, shared memory and spills for each; holds the forward kernel
    and the two backward kernels (dQ with the delta it fuses, dK/dV on that
    delta) against their plain PyTorch versions on the card, at the 400M
-   model's shapes and at others (ragged S, GQA, fp32, and the head dims the
+   model's shapes, at the projection phase's anchor step's ([4, 2048, 16,
+   256] causal) and at others (ragged S, GQA, fp32, and the head dims the
    kernels pad: 16, 32, 64, 96, 192, 256), and times kernels, plain
    versions and the library yardsticks (SDPA forward and backward) at the
    400M model's shapes (CUDA events, after warm-up).
@@ -256,7 +263,9 @@ then 3 async iterations with 4 workers.
    launches the kernels 48 / 24 / 24 times by name, before and after the
    recovery. Printed: the gang's bring-up, state-init, ``save_state`` and
    ``recover()`` seconds, and its replay ms beside this process's.
-16. data: ``bench_400m`` fed from a ``Dataset`` (``ray_tpu_torch/data/``)
+16. data: ``bench_400m`` at ``LIBRARY_LAYERS`` (4) layers (so are tune's and
+   platform's; their twin in process: ``gang_in_process`` at that depth)
+   fed from a ``Dataset`` (``ray_tpu_torch/data/``)
    on a local session with one ``GPU`` node. Eight ``.npy`` files, file i
    the token ids behind the train phase's step i ([8, 2049] int64, the
    cycle's batch i % 4), read by ``read_numpy(dir, parallelism=8)`` and
@@ -271,8 +280,8 @@ then 3 async iterations with 4 workers.
    its rank iterating its split, laid out over its mesh, into the gang's
    train step (``GangTrainStep``) for 8 steps. Checks: every batch a CUDA
    tensor on the worker's ``cuda:0``; every row once, in file order; the
-   8 losses and grad norms equal the train phase's first 8 bit for bit in
-   both consumers; 48 / 24 / 24 flash launches per replay by name in each
+   8 losses and grad norms equal the twin's first 8 bit for bit in
+   both consumers; 8 / 4 / 4 flash launches per replay by name in each
    worker; the coordinator's executor routed its launches by the gang's
    node (``routed_launches`` > 0). The trainer's worker saves its state
    after step 8 (``save_sharded``); the driver uploads it
@@ -282,7 +291,7 @@ then 3 async iterations with 4 workers.
    the train phase's, ``fit()`` s, the ingest stall, batches waiting when
    asked, rows/s and bytes/s from the first block to the last batch, the
    gang's call-to-first-step time, the upload and download s and GB/s.
-17. tune: ``Tuner`` over ``bench_400m`` at full width and depth, two trials
+17. tune: ``Tuner`` over ``bench_400m`` at full width and 4 layers, two trials
    (``lr`` 3e-4 and 1e-3, a grid) at ``{"CPU": 1, "GPU": 0.5}`` at once
    (``max_concurrent_trials=2``) under ``ASHAScheduler(metric="loss",
    mode="min", grace_period=2, reduction_factor=2, max_t=4)``. Each trial
@@ -293,10 +302,10 @@ then 3 async iterations with 4 workers.
    (the state put back after it). Checks: both trials on card 0
    (``CUDA_VISIBLE_DEVICES`` naming it, the same card's uuid), their step
    windows overlapping; no trial errored and each reported at least
-   ``grace_period`` iterations; the 3e-4 trial's losses equal the train
-   phase's first ones bit for bit as far as ASHA let it run;
+   ``grace_period`` iterations; the 3e-4 trial's losses equal the twin's
+   first ones bit for bit as far as ASHA let it run;
    ``get_best_result()`` is the trial whose last reported loss is lower;
-   48 / 24 / 24 flash launches per replay by name in each trial. Printed:
+   8 / 4 / 4 flash launches per replay by name in each trial. Printed:
    ``fit()`` s, each trial's replay ms (two processes share the card) and
    peak memory.
 18. rl: the RLlib port (``ray_tpu_torch/rllib/``), its learners on the
@@ -324,7 +333,7 @@ then 3 async iterations with 4 workers.
    ray_tpu_torch.scripts job submit ... --wait``; its driver is this
    script, ``platform-job``, which holds no CUDA context), runs a workflow
    ``train -> serve``: ``train`` a num_gpus=1 task taking 4 captured steps
-   of ``bench_400m`` at [8, 2048] from ``SEED`` (the last a replay,
+   of ``bench_400m`` at 4 layers at [8, 2048] from ``SEED`` (the last a replay,
    profiled for its flash kernels) and saving a sharded checkpoint;
    ``serve`` raises an injected error, so the CLI exits 1, ``job status``
    says FAILED and ``job logs`` show the error. Job 2 resumes it:
@@ -338,16 +347,46 @@ then 3 async iterations with 4 workers.
    before the kill reads back, the card's two halves are not granted
    again (no GPU available, a num_gpus=1 lease waits) and nvidia-smi
    lists no CUDA context but this process's, the pool's and the train
-   worker's. Job 2 succeeds; the losses equal the train phase's first 4
+   worker's. Job 2 succeeds; the losses equal the twin's first 4
    bit for bit, the pool's tokens the in-process engine's from the same
-   checkpoint, flash fwd/dq/dkv run 48/24/24 per replay in the job's task
+   checkpoint, flash fwd/dq/dkv run 8/4/4 per replay in the job's task
    and decode attention 24 per decode step in each actor; the dashboard
    (``/api/jobs``, ``/api/actors``, ``/api/node/<id>``, ``/api/metrics``,
    ``/metrics``, ``/api/logs``) reports it all; and a workflow step
    returning a CUDA tensor is refused (``StepResultOnDeviceError``).
+20. projection: the flash kernels on a train path at GPT-J's head dim 256:
+   ``gptj_6b`` at full width (d_model 4096, 16 heads x 256, d_ff 16384,
+   vocab 50432, rotary_dim 64) at 7 layers (one stage of the projected
+   layout: 28 layers over pp 4), flash attention, remat "dots", 1.82 B
+   parameters, trained through ``make_train_step`` at [4, 2048] on seeded
+   batches: one eager step, the capture, then 4 replays. Checks: the flash
+   wrappers count 14 / 7 / 7 for the eager step and for the capture and
+   nothing across replays, and a profiled replay launches the kernels 14 /
+   7 / 7 times by name; losses and grad norms finite; three eager steps
+   from a state of the same seed equal the captured ones bit for bit;
+   ``projection.run_probe()`` on the card (one layer, tp 2 as rank 0 of a
+   fake process group) counts within 10% of the analytic FLOPs. Printed:
+   replay ms (CUDA events), tokens/s, MFU by ``analytic_train_flops``, peak
+   memory, and ``project_h100_pod`` (32 cards) anchored on this MFU and on
+   the train phase's 400M MFU counted the same way.
+21. micro: ``ray_tpu_torch._private.ray_perf`` on the CPU. ``ping`` on the
+   GCS, the raylet and an actor's core worker of a session; ``python -m
+   ray_tpu_torch._private.ray_perf`` (``run_microbenchmarks`` at its
+   ``main``'s sizes: 1,000 tasks, 2,000 actor calls, 10 puts of 64 MB, the
+   transfer leg at 256 MB over the shm path and the socket plane); then
+   the broadcast, GCS plane, GCS failover and serving scale legs, and the
+   gang legs (mesh group, mesh heal, data plane) with ``device="cpu"``
+   (gloo ranks). Checks: every leg returns its result line; "pong" on the
+   three planes; no ``transfer_error``; 0 acknowledged writes lost across
+   the failover; the gang healed; the data plane's gang took every row;
+   no daemon of the port that this run started (its environment holds
+   this run's ``RUN_VAR``) left after each leg. Printed: every leg's
+   figures and seconds, not gated.
 
-Prints one JSON line per phase, the card's name and power limit (as
-nvidia-smi reports them), a ``kernels`` JSON line (five kernels; the int8
+Prints one JSON line per phase (each with its ``phase_s``, seconds by the
+script's clock), the card's name and power limit (as nvidia-smi reports
+them), a ``phase_seconds`` line (every phase's seconds and the whole
+run's), a ``kernels`` JSON line (five kernels; the int8
 and decode attention kernels' numbers are per serve_7b decode step, with
 the int8 kernel's per-prefill time and the decode attention kernel's per
 inference-leg step beside them; the flash kernels' launches per
@@ -355,7 +394,8 @@ inference-leg step beside them; the flash kernels' launches per
 step, per replay of the runtime's GPU task, per replay of its
 ``TorchTrainer``, per replay of the MeshGroup's step, per replay of the
 data phase's trainer and gang, per replay of a tune trial and per replay
-of the platform job's train task; the decode attention kernel's per
+of the platform job's train task and per replay of the projection's
+anchor step; the decode attention kernel's per
 decode step of the runtime's serving actor, of its Serve deployment and
 of each actor of the platform job's pool; the rl phase launches none of
 them), the whole run's
@@ -372,6 +412,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -396,7 +437,50 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+# Each phase's seconds by this script's clock, in the order they ran
+# (``timed_phase``); the default run prints them in one line before the
+# ``kernels`` line.
+PHASE_SECONDS: dict = {}
+_PHASES_RUNNING: list = []  # (name, start) of the phases running, innermost last
+
+
+def timed_phase(fn):
+    """Times ``phase_<name>`` into ``PHASE_SECONDS[name]``; the phase's own
+    line (``"phase": name``) carries its seconds so far as ``phase_s``."""
+    name = fn.__name__[len("phase_"):]
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _PHASES_RUNNING.append((name, time.perf_counter()))
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _, start = _PHASES_RUNNING.pop()
+            PHASE_SECONDS[name] = time.perf_counter() - start
+
+    return run
+
+
+# Where this script's processes keep the bytecode of what they import.
+PYCACHE = Path(__file__).resolve().parent / "ray_tpu_torch" / "_build" / "pyc"
+
+
+def cache_bytecode() -> None:
+    """Every process this script starts from now on (workers, raylets, job
+    drivers, ranks, legs: most import torch) caches the bytecode of its
+    imports under ``PYCACHE``, in the checkout's build directory. Where the
+    environment forbids writing bytecode (``PYTHONDONTWRITEBYTECODE``, as on
+    the card machine, whose torch ships no ``__pycache__``), every such
+    process would otherwise compile torch's sources anew at import."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(PYCACHE)
+
+
 def emit(obj) -> None:
+    if _PHASES_RUNNING and obj.get("phase") == _PHASES_RUNNING[-1][0]:
+        obj = {**obj, "phase_s": time.perf_counter() - _PHASES_RUNNING[-1][1]}
     print(json.dumps(obj), flush=True)
 
 
@@ -715,6 +799,7 @@ def ptxas_report(logs: dict) -> list:
     return out
 
 
+@timed_phase
 def phase_kernel() -> dict:
     from ray_tpu_torch.ops import build
     from ray_tpu_torch.ops import flash_attention as fa
@@ -762,6 +847,9 @@ def phase_kernel() -> dict:
         ((2, 1040, 8, 128), 2, torch.bfloat16, True),
         ((2, 130, 8, 128), 2, torch.bfloat16, True),
         ((1, 320, 8, 256), 2, torch.bfloat16, False),
+        # the projection phase's anchor step (gptj_6b at [4, 2048]): causal
+        # MHA at D 256 over 16 q and 32 kv tiles per head
+        ((4, 2048, 16, 256), 16, torch.bfloat16, True),
     ] + HEAD_DIM_CASES
     with torch.inference_mode():
         main, (q, k, v, o, lse) = compare_kernel(fa, gen, MAIN_SHAPE, h,
@@ -962,6 +1050,7 @@ def int8_times(im, gen, m, k, n, dtype) -> dict:
     return out
 
 
+@timed_phase
 def phase_int8_kernel() -> dict:
     """``int8_matmul`` (built by the kernel phase) against its plain version
     at every int8 weight shape of serve_7b, at decode's and prefill's M, in
@@ -1275,6 +1364,7 @@ def decode_times(da, gen, shape: dict) -> dict:
     return out
 
 
+@timed_phase
 def phase_decode_kernel() -> dict:
     """``decode_attention`` (built by the kernel phase) against its plain
     version on the card: bf16 and fp32, D 16 to 256, n_rep 1 to 8,
@@ -1326,6 +1416,7 @@ def phase_decode_kernel() -> dict:
     return out
 
 
+@timed_phase
 def phase_forward(params, cfg) -> dict:
     from ray_tpu_torch.models.generation import prepare_for_inference
     from ray_tpu_torch.models.transformer import forward, loss_fn
@@ -1446,6 +1537,7 @@ def _metric(m) -> tuple:
     return (m["loss"].item(), m["grad_norm"].item(), int(m["step"]))
 
 
+@timed_phase
 def phase_train(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1],
                 steps: int = TRAIN_STEPS,
                 save_after: int = TRAIN_SAVE_AFTER) -> dict:
@@ -1821,6 +1913,7 @@ def _state_full(state) -> list:
     return [_full(t) for t in state_tensors(state)]
 
 
+@timed_phase
 def phase_mesh(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
     """``bench_400m`` over a one-card mesh (``build_mesh(MeshConfig(dp=1))``
     in a world-size-1 NCCL group): ``make_sharded_state(..., mesh=)`` and
@@ -1971,6 +2064,13 @@ MOE_LAYER_RTOL, MOE_LAYER_ATOL = 2.0 ** -8, 1e-6
 MOE_GENERATE = (8, 128, 16)  # prompts, prompt length, new tokens
 
 
+# The depth of bench_400m in the library phases (data, tune, platform: their
+# workers' state, checkpoints and captures), cut to keep the default run
+# inside its time limit; each is held against its twin in process at the
+# same depth.
+LIBRARY_LAYERS = 4
+
+
 def bench_400m_dense():
     """``bench_400m`` with dense attention, as the pipeline's stages run
     it (``parallel/pipeline.py``); otherwise the flagship's settings."""
@@ -1978,6 +2078,15 @@ def bench_400m_dense():
 
     return dataclasses.replace(TransformerConfig.bench_400m(),
                                attn_impl="dense")
+
+
+def library_cfg():
+    """``bench_400m`` at ``LIBRARY_LAYERS`` layers: what the data, tune and
+    platform phases train and serve."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    return dataclasses.replace(TransformerConfig.bench_400m(),
+                               n_layers=LIBRARY_LAYERS)
 
 
 def bench_400m_moe():
@@ -2100,6 +2209,7 @@ def moe_generate_check(cfg) -> dict:
             "first_call_s": first_call_s, "programs": programs}
 
 
+@timed_phase
 def phase_moe(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
     """``bench_400m`` with 4 experts (``bench_400m_moe``) trained on one
     card through ``make_train_step``: seeded numpy batches [8, 2048] through
@@ -2212,6 +2322,7 @@ def phase_moe(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
 SEQ_STEPS = 3  # warm-up, capture, one replay
 
 
+@timed_phase
 def phase_seq(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
     """Over a one-card mesh (a world-size-1 NCCL group): the forward of
     ``bench_400m`` with ``attn_impl`` "ring" and "ulysses" against the
@@ -2313,6 +2424,7 @@ PIPE_EAGER_STEPS = 3
 PIPE_PEAK_RATIO = 1.05
 
 
+@timed_phase
 def phase_pipe(cfg, b: int = MAIN_SHAPE[0], s: int = MAIN_SHAPE[1]) -> dict:
     """``bench_400m`` (dense attention, fp32 parameters, bf16 compute, remat
     "dots") through ``make_pipeline_train_step`` over a one-card mesh (a
@@ -2529,6 +2641,7 @@ def multicard_rank(rank: int, world: int, port: str) -> None:
         faulthandler.cancel_dump_traceback_later()
 
 
+@timed_phase
 def phase_multicard() -> None:
     """Spawns ``multicard_rank`` in ``MULTICARD_WORLD`` processes (this
     script, one per card) and waits for them, at most
@@ -2582,6 +2695,7 @@ def phase_multicard() -> None:
     multicard_mesh_group()
     multicard_data()
     multicard_rl()
+    multicard_micro()
 
 
 def _multicard_trainer_loop(config):
@@ -2720,6 +2834,7 @@ GRAD_FP32_RTOL = 2e-4
 STEP_LOSS_ATOL, STEP_NORM_RTOL = 2e-3, 5e-3
 
 
+@timed_phase
 def phase_grad(cfg, b32: int = 2, b: int = MAIN_SHAPE[0],
                s: int = MAIN_SHAPE[1], steps: int = 7) -> dict:
     from ray_tpu_torch.models.transformer import (
@@ -2830,6 +2945,7 @@ def captured_decode_block(params, cfg, cache, first, start: int,
     return out.clone()
 
 
+@timed_phase
 def phase_inference(cfg) -> dict:
     """bench.py's inference leg on the port: ``prefill`` timed as TTFT and
     ``decode_loop`` as decode tokens/s (each the second call of its
@@ -3295,6 +3411,7 @@ def fp32_engine_equals_generate(params, cfg, rng) -> None:
           f"vs {ref}")
 
 
+@timed_phase
 def phase_serve(params, cfg) -> dict:
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import int8_matmul as im
@@ -3425,6 +3542,7 @@ def logits_vs(ref, got) -> dict:
 INT8_LOGITS_RTOL = 0.12
 
 
+@timed_phase
 def phase_serve_7b() -> dict:
     """``serve_7b`` (6.7B parameters, full width and depth) served int8 on
     the card through ``LLMEngine`` at bench.py's shape, then the same
@@ -3443,7 +3561,6 @@ def phase_serve_7b() -> dict:
         tree_map,
     )
 
-    t_phase = time.perf_counter()
     cfg = TransformerConfig.serve_7b()
     rng = np.random.default_rng(SEED + 5)
     new = 64
@@ -3516,7 +3633,6 @@ def phase_serve_7b() -> dict:
     out["two_layer_int8_vs_bf16_logits"] = two
     check(two["max_abs_diff_over_max_abs_ref"] < INT8_LOGITS_RTOL,
           f"int8 logits stray from bf16 at 2 layers: {two}")
-    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -3614,9 +3730,10 @@ def runtime_train(cfg, params_np: dict, batches: list,
             "peak_memory_bytes": peak}
 
 
-def _session_pids(session_dir: str) -> list:
+def _session_pids(session_dir: str, mark: str = None) -> list:
     """Live (not zombie) processes whose command line names the session
-    directory: the GCS, the raylets and their workers."""
+    directory: the GCS, the raylets and their workers. With ``mark``, only
+    those whose environment holds that ``NAME=value`` entry."""
     import os
 
     out = []
@@ -3628,10 +3745,15 @@ def _session_pids(session_dir: str) -> list:
                 cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
             with open(f"/proc/{d}/stat") as f:
                 state = f.read().rsplit(")", 1)[1].split()[0]
+            if session_dir not in cmd or state == "Z":
+                continue
+            if mark is not None:
+                with open(f"/proc/{d}/environ", "rb") as f:
+                    if mark.encode() not in f.read().split(b"\0"):
+                        continue
         except OSError:
             continue
-        if session_dir in cmd and state != "Z":
-            out.append(int(d))
+        out.append(int(d))
     return sorted(out)
 
 
@@ -3827,6 +3949,7 @@ def _served_llm():
     return ServedLLM
 
 
+@timed_phase
 def phase_runtime(cfg) -> dict:
     """The port's runtime on the card (see the module docstring, 14)."""
     import os
@@ -4457,15 +4580,16 @@ def gang_in_process(cfg, batches) -> dict:
     return {"metrics": metrics, "replay_ms": ms[2:]}
 
 
-def _session_gone(session: str) -> list:
+def _session_gone(session: str, mark: str = None) -> list:
     deadline = time.monotonic() + GANG_SHUTDOWN_S
-    left = _session_pids(session)
+    left = _session_pids(session, mark)
     while left and time.monotonic() < deadline:
         time.sleep(0.2)
-        left = _session_pids(session)
+        left = _session_pids(session, mark)
     return left
 
 
+@timed_phase
 def phase_mesh_group(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
                      s: int = MAIN_SHAPE[1]) -> dict:
     """The mesh_group phase (see the module docstring, 15). ``here``: the
@@ -4477,7 +4601,6 @@ def phase_mesh_group(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
     import ray_tpu_torch as rt
 
     check(not rt.is_initialized(), "the runtime is already up")
-    started = time.perf_counter()
     cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
     batches = [cycle[i % TRAIN_CYCLE] for i in range(GANG_STEPS)]
     if here is None:
@@ -4541,8 +4664,7 @@ def phase_mesh_group(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
            "save_state_s": run["save_state_s"],
            "failure": run["failure"], "failure_s": run["failure_s"],
            "recover_s": run["recover_s"],
-           "restored_step": run["restored_step"], "epoch": run["epoch"],
-           "phase_s": time.perf_counter() - started}
+           "restored_step": run["restored_step"], "epoch": run["epoch"]}
     emit(out)
     return out
 
@@ -4760,6 +4882,7 @@ def _data_rows_in_order(run, cycle) -> bool:
     return run["rows"] == want
 
 
+@timed_phase
 def phase_data(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
                s: int = MAIN_SHAPE[1]) -> dict:
     """The data phase (see the module docstring, 16). ``here``: the train
@@ -4782,7 +4905,6 @@ def phase_data(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
     )
 
     check(not rt.is_initialized(), "the runtime is already up")
-    started = time.perf_counter()
     cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
     if here is None:
         here = gang_in_process(
@@ -4932,8 +5054,7 @@ def phase_data(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
                           "download_s": download_s,
                           "download_gb_per_s": ck_bytes / download_s / 1e9,
                           "restore_s": restore_s,
-                          "restored_equals_worker_state_bit_for_bit": True},
-           "phase_s": time.perf_counter() - started}
+                          "restored_equals_worker_state_bit_for_bit": True}}
     emit(out)
     return out
 
@@ -5010,6 +5131,7 @@ def tune_trial(config) -> None:
                         **ident, **extra})
 
 
+@timed_phase
 def phase_tune(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
                s: int = MAIN_SHAPE[1]) -> dict:
     """The tune phase (see the module docstring, 17). ``here``: the train
@@ -5019,7 +5141,6 @@ def phase_tune(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
     from ray_tpu_torch import tune
 
     check(not rt.is_initialized(), "the runtime is already up")
-    started = time.perf_counter()
     cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE, SEED + 2)
     batches = [cycle[i % TRAIN_CYCLE] for i in range(TUNE_STEPS)]
     if here is None:
@@ -5102,8 +5223,7 @@ def phase_tune(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
            "trials": {str(lr): t for lr, t in trials.items()},
            "windows_overlap_s": overlap,
            "in_process_losses": [m[0] for m in ref],
-           "default_lr_trial_equal_in_process_bit_for_bit": True,
-           "phase_s": time.perf_counter() - started}
+           "default_lr_trial_equal_in_process_bit_for_bit": True}
     emit(out)
     return out
 
@@ -5591,12 +5711,12 @@ def _kernel_counts() -> tuple:
             im.launches, da.launches)
 
 
+@timed_phase
 def phase_rl() -> dict:
     """The rl phase (see the module docstring, 18)."""
     import ray_tpu_torch as rt
 
     check(not rt.is_initialized(), "the runtime is already up")
-    started = time.perf_counter()
     before = _kernel_counts()
     out = {"phase": "rl", "twins": rl_twins()}
     emit({"phase": "rl_twins", **out["twins"]})
@@ -5627,8 +5747,7 @@ def phase_rl() -> dict:
     check(_kernel_counts() == before,
           f"the RL path launched a kernel: {before} -> {_kernel_counts()}")
     out["kernel_launches"] = 0
-    out["phase_s"] = time.perf_counter() - started
-    emit({k: out[k] for k in ("phase", "kernel_launches", "phase_s")})
+    emit({k: out[k] for k in ("phase", "kernel_launches")})
     return out
 
 
@@ -5974,7 +6093,6 @@ def platform_job(work: str, workflow_id: str, mode: str) -> int:
     import os
 
     import ray_tpu_torch as rt
-    from ray_tpu_torch.models.transformer import TransformerConfig
 
     # the driver's own raylet offers nothing: the steps and the pool run on
     # the node that owns the card and outlives the job
@@ -5982,7 +6100,7 @@ def platform_job(work: str, workflow_id: str, mode: str) -> int:
     out = {"pid": os.getpid(), "mode": mode}
     try:
         out["result"] = platform_workflow(rt, work, workflow_id, mode,
-                                          TransformerConfig.bench_400m())
+                                          library_cfg())
     except Exception as e:
         out["error"] = f"{type(e).__name__}: {e}"
         raise
@@ -6143,6 +6261,7 @@ def _http(url: str, parse: bool = True):
     return (json.loads(body) if parse else body.decode()), ms
 
 
+@timed_phase
 def phase_platform(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
                    s: int = MAIN_SHAPE[1]) -> dict:
     """The platform phase (see the module docstring, 19). ``here``: the
@@ -6163,7 +6282,6 @@ def phase_platform(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
     from ray_tpu_torch.util import state as rt_state
 
     check(not rt.is_initialized(), "the runtime is already up")
-    started = time.perf_counter()
     if here is None:
         cycle = numpy_train_batches(cfg.vocab_size, b, s, TRAIN_CYCLE,
                                     SEED + 2)
@@ -6472,8 +6590,7 @@ def phase_platform(cfg, here: dict = None, b: int = MAIN_SHAPE[0],
                          "prometheus": prom_ms},
         "cuda_tensor_rule": refused,
         "contexts_with_pool_up": contexts,
-        "session_processes_before_shutdown": len(live),
-        "phase_s": time.perf_counter() - started})
+        "session_processes_before_shutdown": len(live)})
     emit(out)
     return out
 
@@ -6786,26 +6903,336 @@ def multicard_rl() -> dict:
     return out
 
 
+# The projection phase's anchor step: GPT-J-6B at full width, at the depth
+# of one stage of the projected layout (28 layers over pp 4), trained at
+# [4, 2048]: one eager step, the capture, then PROJECTION_REPLAYS replays.
+PROJECTION_LAYERS = 7
+PROJECTION_SHAPE = (4, 2048)
+PROJECTION_REPLAYS = 4
+PROJECTION_EAGER_STEPS = 3  # eager steps held against the captured ones
+PROJECTION_PROBE_BAND = 0.10  # tests/test_projection.py:84's band around 1
+
+
+def anchor_mfu(cfg, b: int, s: int, replay_ms: list) -> float:
+    """The MFU the projection composes: ``analytic_train_flops`` (no
+    embedding) of one step at [b, s] over the mean replay time, against
+    the card's dense bf16 peak."""
+    from ray_tpu_torch.parallel.projection import analytic_train_flops
+
+    return (analytic_train_flops(cfg, b * s, s)
+            / (float(np.mean(replay_ms)) / 1e3) / PEAK_BF16_FLOPS)
+
+
+@timed_phase
+def phase_projection(here: dict) -> dict:
+    """The projection phase (see the module docstring, 20). ``here``: the
+    train phase's replay ms (``bench_400m`` at [8, 2048])."""
+    import dataclasses as dc
+
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import (
+        default_optimizer,
+        make_sharded_state,
+        make_train_step,
+    )
+    from ray_tpu_torch.parallel.projection import (
+        GPTJ_STAGE_MFU,
+        project_h100_pod,
+        run_probe,
+    )
+
+    cfg = dc.replace(TransformerConfig.gptj_6b(), n_layers=PROJECTION_LAYERS,
+                     attn_impl="flash", remat=True, remat_policy="dots")
+    b, s = PROJECTION_SHAPE
+    want = tuple(flash_want(cfg).values())
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+               for batch in numpy_train_batches(cfg.vocab_size, b, s,
+                                                TRAIN_CYCLE, SEED + 2)]
+
+    def counters():
+        return (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = default_optimizer()
+    state, _ = make_sharded_state(cfg, opt, SEED)
+    step = make_train_step(cfg, opt)
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    metrics, events = [], []
+    for i in range(2 + PROJECTION_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batches[i % TRAIN_CYCLE])
+        end.record()
+        metrics.append(m)
+        events.append((start, end))
+        if i == 0:
+            torch.cuda.synchronize()
+            eager_counts = counters()
+        elif i == 1:
+            torch.cuda.synchronize()
+            capture_counts = counters()
+    torch.cuda.synchronize()
+    run_counts = counters()
+    peak = torch.cuda.max_memory_allocated()
+    check(eager_counts == want and capture_counts == tuple(2 * w for w in want)
+          and run_counts == capture_counts,
+          f"flash wrapper counts: eager step {eager_counts}, after capture "
+          f"{capture_counts}, after the replays {run_counts} (want {want} per "
+          "eager or captured step, none per replay)")
+    check(step.captures == 1 and step.replays == 1 + PROJECTION_REPLAYS,
+          f"{step.captures} captures, {step.replays} replays")
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses}, {norms}")
+    step_ms = [a.elapsed_time(e) for a, e in events]
+    replay_ms = step_ms[2:]
+    prof = profile_launches(lambda: step(state, batches[0]), TRAIN_KINDS,
+                            dict(zip(FLASH_KINDS, want)))
+    per_replay = tuple(prof["launches_by_kind"][k] for k in FLASH_KINDS)
+    check(per_replay == want, f"one replay launched flash fwd/dq/dkv "
+          f"{per_replay} times, not {want}")
+    captured = [_metric(m) for m in metrics[:PROJECTION_EAGER_STEPS]]
+    del state, step, opt, metrics, m
+    torch.cuda.empty_cache()
+
+    # Eager steps from a state of the same seed against the captured ones.
+    opt = default_optimizer()
+    state, _ = make_sharded_state(cfg, opt, SEED)
+    step = make_train_step(cfg, opt)
+    eager = [_metric(step.eager(state, batches[i])[1])
+             for i in range(PROJECTION_EAGER_STEPS)]
+    check(eager == captured, f"eager steps {eager} != captured (1: eager "
+          f"warm-up, 2: first captured, 3: replay) {captured}")
+    del state, step, opt, batches
+    torch.cuda.empty_cache()
+
+    probe = run_probe()
+    ratio = probe["measured_over_analytic"]
+    check(abs(ratio - 1.0) <= PROJECTION_PROBE_BAND,
+          f"the probe's measured/analytic FLOPs {ratio} is not within "
+          f"{PROJECTION_PROBE_BAND} of 1: {probe}")
+    torch.cuda.empty_cache()
+
+    mfu = anchor_mfu(cfg, b, s, replay_ms)
+    bench = TransformerConfig.bench_400m()
+    mfu_400m = anchor_mfu(bench, MAIN_SHAPE[0], MAIN_SHAPE[1],
+                          here["replay_ms"])
+    card = (f"{torch.cuda.get_device_name(0)}, "
+            f"{_power_limit()} (this run)")
+    proj = project_h100_pod(efficiency_anchor=mfu, extracted=probe)
+    proj_400m = project_h100_pod(efficiency_anchor=mfu_400m, extracted=probe)
+    out = {"phase": "projection",
+           "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "d_head": cfg.d_head,
+                      "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+                      "rotary_dim": cfg.rotary_dim,
+                      "params": cfg.param_count()},
+           "batch": [b, s], "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms, "replay_ms": replay_ms,
+           "replay_ms_mean": float(np.mean(replay_ms)),
+           "tokens_per_s": b * s / float(np.mean(replay_ms)) * 1e3,
+           "mfu": mfu, "mfu_basis": "analytic_train_flops over 989 TFLOP/s",
+           "mfu_in_code": GPTJ_STAGE_MFU,
+           "bench_400m_mfu": mfu_400m,
+           "peak_memory_bytes": peak,
+           "launches_per_step": dict(zip(FLASH_KINDS, per_replay)),
+           "launch_readings": prof["launch_readings"],
+           "wrapper_counts": {"eager_step": eager_counts,
+                              "after_capture": capture_counts,
+                              "after_replays": run_counts},
+           "eager_vs_captured": {"eager": eager, "captured": captured,
+                                 "bit_equal": True},
+           "device_ms_by_kind": prof.get("device_ms_by_kind"),
+           "probe": {k: probe[k] for k in (
+               "measured_over_analytic", "flops_per_device",
+               "measured_flops_total", "analytic_flops_total", "flops_by_op",
+               "flops_basis", "devices", "batch_size", "seq")},
+           "projection": {k: v for k, v in proj.items()},
+           "anchor_basis": f"this run's GPT-J-width stage step, {card}",
+           "projection_400m_anchor": {
+               "anchor_basis": f"this run's bench_400m train replays at "
+                               f"[8, 2048], {card}",
+               **{k: proj_400m[k] for k in (
+                   "efficiency_anchor", "t_compute_s", "t_step_s",
+                   "tokens_per_s", "projected_mfu")}}}
+    emit(out)
+    return out
+
+
+def _power_limit() -> str:
+    """The card's power limit as nvidia-smi reports it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+# The micro phase: ray_perf's legs at ``ray_perf.main``'s sizes, each in a
+# process of its own, on the CPU (the gang legs' ranks are gloo ranks).
+MICRO_TIMEOUT_S = 300  # one leg's subprocess
+MICRO_DAEMONS = "ray_tpu_torch._private."  # in every daemon's command line
+# Set in this process's environment when the run starts, and so inherited
+# by every process it starts: the micro phase's leak checks look only at
+# processes that carry it, not at the port's daemons of another run on the
+# machine.
+RUN_VAR = "CHIP_SMOKE_RUN"
+
+
+def run_mark() -> str:
+    """This run's ``RUN_VAR=value`` environment entry, set on first use."""
+    os.environ.setdefault(RUN_VAR, f"{os.getpid()}.{time.time_ns()}")
+    return f"{RUN_VAR}={os.environ[RUN_VAR]}"
+MICRO_DATA_ROWS = 16 * 4096  # the data plane leg's N_BLOCKS * ROWS_PER
+
+
+@timed_phase
+def phase_micro() -> dict:
+    """The micro phase (see the module docstring, 21)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import ray_perf, rpc
+    from ray_tpu_torch._private.worker import require_connected
+
+    check(not rt.is_initialized(), "the runtime is already up")
+    mark = run_mark()
+    check(not _session_gone(MICRO_DAEMONS, mark),
+          "a daemon of the port started by this run is alive")
+    seconds = {}
+
+    # ping on the three planes of a session of this process
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=2, num_gpus=0)
+    try:
+        @rt.remote(num_cpus=1)
+        class Addr:
+            def addr(self):
+                from ray_tpu_torch._private.worker import global_worker
+
+                return global_worker.core_worker.my_addr
+
+        actor = Addr.remote()
+        pongs = {"gcs": require_connected().gcs.call("ping", None,
+                                                     timeout=30)}
+        for name, addr in (("raylet", rt.nodes()[0]["raylet_addr"]),
+                           ("worker", rt.get(actor.addr.remote(),
+                                             timeout=120))):
+            cli = rpc.Client.connect(addr, name=f"micro-{name}")
+            try:
+                pongs[name] = cli.call("ping", None, timeout=30)
+            finally:
+                cli.close()
+        rt.kill(actor)
+    finally:
+        rt.shutdown()
+    left = {"ping": _session_gone(info["session_dir"])}
+    seconds["ping"] = time.perf_counter() - t0
+    check(pongs == {"gcs": "pong", "raylet": "pong", "worker": "pong"},
+          f"ping on the three planes: {pongs}")
+
+    # run_microbenchmarks at main's sizes, through the module's entry point
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "RAYTPU_ADDRESS"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch._private.ray_perf"],
+        capture_output=True, text=True, timeout=MICRO_TIMEOUT_S, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    check(proc.returncode == 0, f"python -m ray_tpu_torch._private.ray_perf "
+          f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    legs = {"microbenchmarks": json.loads(proc.stdout)}
+    seconds["microbenchmarks"] = time.perf_counter() - t0
+    left["microbenchmarks"] = _session_gone(MICRO_DAEMONS, mark)
+    micro = legs["microbenchmarks"]
+    check("transfer_error" not in micro,
+          f"the transfer leg failed: {micro.get('transfer_error')}")
+    check(all(micro[k] > 0 for k in (
+        "tasks_per_s", "actor_calls_per_s", "actor_calls_pipelined_per_s",
+        "put_gbps", "get_gbps", "transfer_gbps", "transfer_socket_gbps"))
+          and micro["task_inline_hits"] >= 0
+          and micro["task_inline_bytes"] >= 0, f"microbenchmarks: {micro}")
+
+    # the host-plane legs (the transfer leg ran inside run_microbenchmarks)
+    # and the gang legs, their ranks gloo ranks on the CPU
+    for name, leg in (("broadcast", ray_perf.run_broadcast_bench),
+                      ("gcs_plane", ray_perf.run_gcs_plane_bench),
+                      ("gcs_failover", ray_perf.run_gcs_failover_bench),
+                      ("serving_scale", ray_perf.run_serving_scale_bench),
+                      ("mesh_group", functools.partial(
+                          ray_perf.run_mesh_group_bench, device="cpu")),
+                      ("mesh_heal", functools.partial(
+                          ray_perf.run_mesh_heal_bench, device="cpu")),
+                      ("data_plane", functools.partial(
+                          ray_perf.run_data_plane_bench, device="cpu"))):
+        t0 = time.perf_counter()
+        legs[name] = leg()
+        seconds[name] = time.perf_counter() - t0
+        left[name] = _session_gone(MICRO_DAEMONS, mark)
+    check(not any(left.values()), f"processes left after a leg: {left}")
+    fo = legs["gcs_failover"]
+    check(fo["acks_lost"] == 0 and fo["total_acked"] > 0
+          and fo["post_failover_epoch"] == 2,
+          f"the failover lost acknowledged writes: {fo}")
+    check(legs["mesh_heal"]["outcome"] == "healed",
+          f"the gang did not heal: {legs['mesh_heal']}")
+    rows = legs["data_plane"]["rows"]
+    check(rows == MICRO_DATA_ROWS, f"the data plane's gang took {rows} rows, "
+          f"not {MICRO_DATA_ROWS}")
+    check(legs["mesh_group"]["devices"] == ["cpu"] * 4
+          and legs["mesh_group"]["cards"] == [None] * 4,
+          f"the gang's ranks ran on {legs['mesh_group']['devices']}")
+    out = {"phase": "micro", "pong": pongs, "legs": legs,
+           "leg_seconds": seconds}
+    emit(out)
+    return out
+
+
+
+def multicard_micro() -> dict:
+    """``run_mesh_group_bench`` and ``run_data_plane_bench`` with their
+    ranks on the cards (NCCL): four and two cards."""
+    from ray_tpu_torch._private import ray_perf
+
+    group = ray_perf.run_mesh_group_bench(device="cuda")
+    data = ray_perf.run_data_plane_bench(device="cuda")
+    # each rank sees its own card as cuda:0; their uuids tell them apart
+    check(group["devices"] == ["cuda:0"] * 4
+          and len(set(group["cards"])) == 4 and all(group["cards"]),
+          f"the gang's ranks ran on {group['devices']}, cards "
+          f"{group['cards']}")
+    check(data["rows"] == MICRO_DATA_ROWS and data["device"] == "cuda"
+          and len(set(data["cards"])) == 2 and all(data["cards"]),
+          f"the data plane's gang: {data}")
+    out = {"phase": "multicard_micro", "mesh_group": group,
+           "data_plane": data}
+    emit(out)
+    return out
+
+
 def main(argv) -> int:
     if len(argv) == 4 and argv[0] == "platform-job":
         # a submitted job's driver: before any CUDA call, as it makes none
         return platform_job(*argv[1:])
+    rank = len(argv) == 4 and argv[0] == "multicard-rank"
+    if not rank and argv not in (
+            [], ["kernel"], ["decode_kernel"], ["serve_7b"], ["train"],
+            ["inference"], ["mesh"], ["moe"], ["seq"], ["pipe"], ["runtime"],
+            ["mesh_group"], ["data"], ["tune"], ["rl"], ["platform"],
+            ["projection"], ["micro"], ["multicard"]):
+        print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
+              "train | inference | mesh | moe | seq | pipe | runtime | "
+              "mesh_group | data | tune | rl | platform | projection | "
+              "micro | multicard]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "card only", file=sys.stderr)
         return 1
-    if len(argv) == 4 and argv[0] == "multicard-rank":
+    cache_bytecode()
+    run_mark()
+    if rank:
         multicard_rank(int(argv[1]), int(argv[2]), argv[3])
         return 0
-    if argv not in ([], ["kernel"], ["decode_kernel"], ["serve_7b"],
-                    ["train"], ["inference"], ["mesh"], ["moe"], ["seq"],
-                    ["pipe"], ["runtime"], ["mesh_group"], ["data"],
-                    ["tune"], ["rl"], ["platform"], ["multicard"]):
-        print("usage: chip_smoke.py [kernel | decode_kernel | serve_7b | "
-              "train | inference | mesh | moe | seq | pipe | runtime | "
-              "mesh_group | data | tune | rl | platform | multicard]",
-              file=sys.stderr)
-        return 2
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
     smi = subprocess.run(
@@ -6856,6 +7283,20 @@ def main(argv) -> int:
         phase_multicard()
         print(smi, flush=True)
         return 0
+    if argv == ["micro"]:
+        phase_micro()
+        print(smi, flush=True)
+        return 0
+    if argv == ["projection"]:
+        from ray_tpu_torch.ops import build
+
+        build.build()
+        cfg = TransformerConfig.bench_400m()
+        cycle = numpy_train_batches(cfg.vocab_size, MAIN_SHAPE[0],
+                                    MAIN_SHAPE[1], TRAIN_CYCLE, SEED + 2)
+        phase_projection(here=gang_in_process(cfg, cycle))
+        print(smi, flush=True)
+        return 0
     if argv == ["runtime"]:
         from ray_tpu_torch.ops import build
 
@@ -6874,7 +7315,7 @@ def main(argv) -> int:
         from ray_tpu_torch.ops import build
 
         build.build()  # once here, before any worker loads a kernel
-        phase_platform(TransformerConfig.bench_400m())
+        phase_platform(library_cfg())
         print(smi, flush=True)
         return 0
     if argv in (["data"], ["tune"]):
@@ -6882,7 +7323,7 @@ def main(argv) -> int:
 
         build.build()  # once here, before any worker loads a kernel
         phase = phase_data if argv == ["data"] else phase_tune
-        phase(TransformerConfig.bench_400m())
+        phase(library_cfg())
         print(smi, flush=True)
         return 0
     started = time.perf_counter()
@@ -6898,6 +7339,8 @@ def main(argv) -> int:
     # early in the process, and alone, it read all 256 (PERF.md §6)
     s7 = phase_serve_7b()
     torch.cuda.empty_cache()
+    # the CPU legs while the host runs nothing else of this script
+    phase_micro()
     cfg = TransformerConfig.bench_400m()
     params = init_params(cfg, SEED)
     phase_forward(params, cfg)
@@ -6911,17 +7354,25 @@ def main(argv) -> int:
     phase_serve(params, cfg)
     del params
     torch.cuda.empty_cache()
-    runtime = phase_runtime(cfg)
     here = {"metrics": list(zip(train["losses"], train["grad_norms"],
                                 range(1, train["steps"] + 1))),
             "replay_ms": train["step_ms_timed"]}
+    projection = phase_projection(here=here)
+    torch.cuda.empty_cache()
+    runtime = phase_runtime(cfg)
     gang = phase_mesh_group(cfg, here={
         "metrics": here["metrics"][:GANG_STEPS],
         "replay_ms": here["replay_ms"]})
-    data = phase_data(cfg, here=here)
-    tuned = phase_tune(cfg, here=here)
+    # the library phases' twin in process, at their depth
+    lib = library_cfg()
+    lib_cycle = numpy_train_batches(lib.vocab_size, MAIN_SHAPE[0],
+                                    MAIN_SHAPE[1], TRAIN_CYCLE, SEED + 2)
+    lib_here = gang_in_process(
+        lib, [lib_cycle[i % TRAIN_CYCLE] for i in range(DATA_STEPS)])
+    data = phase_data(lib, here=lib_here)
+    tuned = phase_tune(lib, here=lib_here)
     phase_rl()
-    platform = phase_platform(cfg, here=here)
+    platform = phase_platform(lib, here=lib_here)
     print(smi, flush=True)
     per_step = train["launches_per_step"]
     wrappers = train["wrapper_counts_in_run"]
@@ -6943,6 +7394,9 @@ def main(argv) -> int:
     main_bwd = kernel["bwd_cases"][0]
     print(f"chip_smoke: the whole run took "
           f"{time.perf_counter() - started:.1f} s", flush=True)
+    emit({"phase_seconds": {**PHASE_SECONDS,
+                            "total": time.perf_counter() - started}})
+    per_anchor = projection["launches_per_step"]  # GPT-J width, 7 layers
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -6957,6 +7411,7 @@ def main(argv) -> int:
          "launches_per_data_gang_replay": per_data_gang["flash_fwd"],
          "launches_per_tune_trial_replay": per_trial["flash_fwd"],
          "launches_per_job_task_replay": per_job_task["flash_fwd"],
+         "launches_per_projection_anchor_step": per_anchor["flash_fwd"],
          "wrapper_count_in_train_run": wrappers["flash_fwd"],
          "max_abs_err": kernel["cases"][0]["max_abs_err"],
          "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
@@ -6976,6 +7431,7 @@ def main(argv) -> int:
          "launches_per_data_gang_replay": per_data_gang["flash_bwd_dq"],
          "launches_per_tune_trial_replay": per_trial["flash_bwd_dq"],
          "launches_per_job_task_replay": per_job_task["flash_bwd_dq"],
+         "launches_per_projection_anchor_step": per_anchor["flash_bwd_dq"],
          "wrapper_count_in_train_run": wrappers["flash_bwd_dq"],
          "max_abs_err": main_bwd["dq_max_abs_err"],
          "ms": kernel["bwd_dq_ms"], "plain_ms": kernel["bwd_dq_plain_ms"],
@@ -6995,6 +7451,7 @@ def main(argv) -> int:
          "launches_per_data_gang_replay": per_data_gang["flash_bwd_dkv"],
          "launches_per_tune_trial_replay": per_trial["flash_bwd_dkv"],
          "launches_per_job_task_replay": per_job_task["flash_bwd_dkv"],
+         "launches_per_projection_anchor_step": per_anchor["flash_bwd_dkv"],
          "wrapper_count_in_train_run": wrappers["flash_bwd_dkv"],
          "max_abs_err": max(main_bwd["dk_max_abs_err"],
                             main_bwd["dv_max_abs_err"]),

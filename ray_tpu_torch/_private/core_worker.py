@@ -3518,6 +3518,9 @@ class CoreWorker:
             ),
         }
 
+    async def rpc_ping(self, conn, _):
+        return "pong"
+
     async def rpc_task_stats(self, conn, _):
         """Task-plane counters (the raylet aggregates these per node
         into node_stats["task_plane"]; the perf bench reads the driver's

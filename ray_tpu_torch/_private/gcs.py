@@ -2176,6 +2176,9 @@ class GcsServer:
         return True
 
     # ---------------- debug ----------------
+    async def rpc_ping(self, conn, _):
+        return "pong"
+
     async def rpc_internal_state(self, conn, _):
         return {
             "num_nodes": len([n for n in self.nodes.values() if n.alive]),

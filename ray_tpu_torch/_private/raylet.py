@@ -3163,6 +3163,9 @@ class Raylet:
         self._mesh_group_cache = (now, out)
         return out
 
+    async def rpc_ping(self, conn, _):
+        return "pong"
+
     async def rpc_node_stats(self, conn, _):
         task_plane = await self._task_plane_stats()
         return {

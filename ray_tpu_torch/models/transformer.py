@@ -183,7 +183,8 @@ def init_params(config: TransformerConfig, seed: int,
     differ: parity goes through weight transfer)."""
     c = config
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    # a "meta" tree (shapes only) draws from a CPU generator: meta has none
+    gen = torch.Generator(device=dev if dev.type != "meta" else "cpu")
     gen.manual_seed(seed)
     pd = c.param_dtype
 

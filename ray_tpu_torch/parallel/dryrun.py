@@ -1,6 +1,6 @@
 """A multi-device dry run of the train step (PyTorch port of
-``__graft_entry__.dryrun_multichip``, ``__graft_entry__.py:165-237``: parts
-1, 2, 2b, 2c and 3).
+``__graft_entry__.dryrun_multichip``, ``__graft_entry__.py:165-250``: parts
+1, 2, 2b, 2c, 3 and 4).
 
 ``dryrun_multidevice(n)`` runs in each of the ``n`` processes of an
 initialized process group of world size ``n`` (one device each). Part 1
@@ -17,7 +17,9 @@ and asserts the bounded-activation property: 1F1B's peak activation bytes
 (``_pipeline_peak_bytes``) at most 1.05 times GPipe's on the same step.
 Part 3 trains ``tiny`` with 4 experts (top-2) over dp = n / (2 tp), ep = 2,
 tp (tp = 2 when 4 divides n): expert parallelism, the expert all-to-alls
-over ep. Each part's loss must be finite and fall.
+over ep. Each part's loss must be finite and fall. Part 4 prints, on rank 0,
+the analytic projection of a GPT-J-6B fine-tune on 32 H100 cards
+(``projection.project_h100_pod``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from torch.distributed.tensor import DTensor
 from ray_tpu_torch.models.transformer import TransformerConfig, tree_leaves
 from ray_tpu_torch.parallel.mesh import MeshConfig, axis_size, build_mesh
 from ray_tpu_torch.parallel.pipeline import make_pipeline_train_step
+from ray_tpu_torch.parallel.projection import project_h100_pod
 from ray_tpu_torch.parallel.train_step import (
     default_optimizer,
     make_sharded_state,
@@ -260,4 +263,14 @@ def dryrun_multidevice(n: int, device_type: Optional[str] = None) -> Dict:
             print(f"dryrun_multidevice ok (moe/ep): "
                   f"mesh={out['moe']['mesh']} "
                   f"loss={out['moe']['losses'][-1]:.4f}", flush=True)
+    # 4) the north-star scale-out number: the projected MFU of a GPT-J-6B
+    # fine-tune on 32 H100 cards (the analytic composition here; the probe
+    # that validates it runs in projection.run_probe and its tests)
+    if rank0:
+        proj = project_h100_pod()
+        print(f"dryrun_multidevice ok (32 x H100 GPT-J-6B projection): "
+              f"MFU={proj['projected_mfu']:.3f}, "
+              f"{proj['tokens_per_s']:.0f} tok/s at layout {proj['layout']} "
+              f"(assumptions in ray_tpu_torch/parallel/projection.py)",
+              flush=True)
     return out

@@ -16,7 +16,7 @@ On four gloo processes (a 2 x 2 ("dp", "tp") mesh, ``tests/torch_gloo.py``):
 the pytest process's CPU devices (fp32, atol 2e-5, as
 tests/test_model.py:205-218); ``shard_box`` against DTensor's own local
 tensors, uneven splits included (exact); the sharded batch pump; and
-``dryrun_multidevice(4, "cpu")`` (parts 1, 2, 2c and 3).
+``dryrun_multidevice(4, "cpu")`` (parts 1, 2, 2c, 3 and 4).
 """
 
 import json
@@ -365,6 +365,9 @@ def test_dryrun_multidevice_on_four_cpu_ranks(four_ranks):
     assert "dryrun_multidevice ok (pipeline): mesh=" in outs[0]
     assert "dryrun_multidevice ok (pp=4, M=8, 1f1b): mesh=" in outs[0]
     assert "dryrun_multidevice ok (moe/ep): mesh=" in outs[0]
+    # part 4, on rank 0 only: the 32-card H100 projection
+    part4 = "dryrun_multidevice ok (32 x H100 GPT-J-6B projection): MFU="
+    assert part4 in outs[0] and part4 not in outs[1]
     for r in results:
         dry = r["dryrun"]
         # part 1: ring attention over sp = 2; part 2: GPipe over dp 2 x pp

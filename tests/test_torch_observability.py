@@ -95,7 +95,10 @@ def timeline_chrome_trace(rt, tmp):
     while time.monotonic() < deadline:
         events = state.timeline(path)
         spans = [e for e in events if e["name"] == "work"]
-        if len(spans) >= 4:
+        # task events reach the GCS in batches: a span whose FINISHED event
+        # has not arrived yet has no duration
+        if len(spans) >= 4 and all(e["args"]["state"] == "FINISHED"
+                                   for e in spans):
             break
         time.sleep(0.3)
     with open(path) as f:

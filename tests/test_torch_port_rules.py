@@ -18,9 +18,10 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import rllib
+from ray_tpu_torch._private import ray_perf
 from ray_tpu_torch.data import iterator
 from ray_tpu_torch.models import convert, generation, quant, transformer
-from ray_tpu_torch.parallel import train_step
+from ray_tpu_torch.parallel import projection, train_step
 from ray_tpu_torch.rllib import models as rl_models
 from ray_tpu_torch.rllib import rollout_worker, sac
 from ray_tpu_torch.serve import llm
@@ -107,7 +108,9 @@ def test_every_port_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.util.multiprocessing",
             "ray_tpu_torch.util.joblib",
             "ray_tpu_torch.util.metrics",
-            "ray_tpu_torch.util.state"} <= set(mods)
+            "ray_tpu_torch.util.state",
+            "ray_tpu_torch._private.ray_perf",
+            "ray_tpu_torch.parallel.projection"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -162,7 +165,9 @@ def test_the_scan_covers_every_kernel_module():
             "ray_tpu_torch/util/multiprocessing.py",
             "ray_tpu_torch/util/joblib.py",
             "ray_tpu_torch/util/metrics.py",
-            "ray_tpu_torch/util/state.py"} <= names
+            "ray_tpu_torch/util/state.py",
+            "ray_tpu_torch/_private/ray_perf.py",
+            "ray_tpu_torch/parallel/projection.py"} <= names
 
 
 def test_importing_the_package_loads_no_torch():
@@ -220,6 +225,25 @@ def test_importing_the_platform_planes_loads_no_torch():
         "import ray_tpu_torch.util.multiprocessing\n"
         "from ray_tpu_torch.util import ActorPool, Queue\n"
         "import ray_tpu_torch._private.gcs_standby\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_no_cuda_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_ray_perf_loads_no_torch():
+    """The microbenchmarks' module, like the reference's, imports only
+    numpy besides the runtime: a fresh interpreter's import of it loads
+    neither torch nor jax nor ray_tpu (a gang leg's subprocess imports
+    torch where it runs a torch step)."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch._private.ray_perf\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
@@ -321,6 +345,11 @@ ENTRY_POINTS = {
     "init_sac_networks": lambda: sac.init_sac_networks(0, 4, 2),
     "RolloutWorker": lambda: rollout_worker.RolloutWorker(
         "MinAtar-Breakout", 8, 0.99, 0.95),
+    # the projection's probe and the microbenchmarks' gang legs
+    "run_probe": lambda: projection.run_probe(),
+    "run_mesh_group_bench": lambda: ray_perf.run_mesh_group_bench(),
+    "run_mesh_heal_bench": lambda: ray_perf.run_mesh_heal_bench(),
+    "run_data_plane_bench": lambda: ray_perf.run_data_plane_bench(),
 }
 
 
@@ -342,6 +371,23 @@ def test_chip_smoke_fails_without_a_card():
     proc = _run_smoke(REPO)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("phase", ["micro", "projection"])
+def test_chip_smoke_accepts_the_phase_and_fails_without_a_card(phase):
+    """``chip_smoke.py micro`` and ``projection`` are phases it knows (an
+    unknown one is a usage error, exit 2, card or not); without a card
+    each exits 1, printing no result."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", phase], cwd=REPO,
+                          env=_no_cuda_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 1 and "no CUDA device" in proc.stderr, (
+        proc.stdout + proc.stderr)
+    assert '"ok": true' not in proc.stdout
+    bad = subprocess.run([sys.executable, "chip_smoke.py", phase + "_x"],
+                         cwd=REPO, env=_no_cuda_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert bad.returncode == 2 and "usage" in bad.stderr
 
 
 def test_chip_smoke_fails_alone_without_the_program(tmp_path):
